@@ -2,8 +2,10 @@
 
 On the CPU every kernel wrapper runs its plain version; these tests hold
 those plain versions to the Pallas kernels they stand for, run as the JAX
-package's own tests run them (``interpret=True``), and the ``min_sqdist``
-backward to ``jax.grad`` of the reference's custom VJP (its XLA scatter).
+package's own tests run them (``interpret=True``, or TPU interpret mode
+for ``make_min_grad_y``, which takes no such argument), and the
+``min_sqdist`` backward to ``jax.grad`` of the reference's custom VJP (its
+XLA scatter).
 
 Tolerances: argmin indices exactly (random clouds have no near-ties);
 values 1e-5 (float32 sums of three products in another order); gradients
@@ -13,9 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from uuo_mocap_tpu.ops import chamfer as jchamfer
-from uuo_mocap_tpu.ops.chamfer_pallas import F_BLOCK, min_sqdist_pallas, ranked_nearest_pallas
+from uuo_mocap_tpu.ops.chamfer_pallas import (F_BLOCK, make_min_grad_y, min_sqdist_pallas,
+                                              ranked_nearest_pallas)
 from uuo_mocap_tpu_torch.ops import chamfer as tchamfer
 from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
 
@@ -95,6 +99,25 @@ def test_backward_plain_is_the_scatter():
             ref_db[b, idx[b, m]] += g[b, m].numpy()
     np.testing.assert_allclose(dy.numpy(), ref_dy, atol=1e-6)
     np.testing.assert_allclose(db.numpy(), ref_db, atol=1e-6)
+
+
+@pytest.mark.parametrize("B, M, V", [(2, 30, 40), (3, 64, 7), (5, 41, 600), (1, 17, 513)])
+def test_backward_plain_matches_pallas_bwd_kernel(B, M, V):
+    """The plain scatter against the Pallas ``_bwd_kernel`` (its one-hot
+    matmul), run in TPU interpret mode on the CPU.  V small against M, so
+    many rows share a target.  Tolerance 1e-6: both add the same float32
+    terms (O(1), at most ~10 per target), only possibly in another order,
+    which moves a sum by a few ulps."""
+    rng = np.random.RandomState(B * M + V)  # its own stream: RNG's later draws stay as they were
+    idx = rng.randint(0, V, size=(B, M)).astype(np.int32)
+    diff = rng.randn(B, M, 3).astype(np.float32)
+    g = rng.randn(B, M).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        dy_j, db_j = make_min_grad_y(V)(jnp.asarray(idx), jnp.asarray(diff), jnp.asarray(g))
+    dy, db = K.min_sqdist_backward_plain(torch.as_tensor(idx), torch.as_tensor(diff),
+                                         torch.as_tensor(g), V)
+    np.testing.assert_allclose(dy.numpy(), np.asarray(dy_j), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(db.numpy(), np.asarray(db_j), atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("single_directional", [True, False])

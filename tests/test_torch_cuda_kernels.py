@@ -5,7 +5,8 @@ versions are held to the Pallas kernels by ``test_torch_chamfer.py``).
 Run on the card with ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda_kernels.py`` (the root ``conftest.py`` imports JAX).
 Tolerances: indices exactly except ties (random clouds have none), values
-1e-5, the atomic backward 1e-5 (run-dependent summation order)."""
+1e-5; the backward exactly, bit for bit: it writes each sum in the order
+m = 0, 1, ... without atomics, as the CPU's ``index_add_`` does."""
 import numpy as np
 import pytest
 import torch
@@ -28,8 +29,12 @@ def _cloud(g, *shape, dev):
     return torch.randn(*shape, 3, generator=g).to(dev) + torch.tensor([1.0, -2.0, 0.5], device=dev)
 
 
-@pytest.mark.parametrize("L, F, M, V, with_bias", [(3, 19, 17, 700, False), (2, 5, 41, 6890, True),
-                                                   (1, 2, 70, 300, True)])
+# M in {1, 17, 41, 64, 70} (above 64: 9 query groups of 8); odd L * F and
+# V with 3V not a multiple of 4, so frames start at every 16-byte
+# misalignment
+@pytest.mark.parametrize("L, F, M, V, with_bias", [(3, 19, 17, 701, False), (3, 5, 41, 6890, True),
+                                                   (1, 3, 70, 301, True), (1, 7, 1, 513, False),
+                                                   (2, 3, 64, 1001, True), (1, 5, 41, 6890, False)])
 def test_rank_kernel_matches_plain(dev, L, F, M, V, with_bias):
     g = torch.Generator().manual_seed(L * F + M)
     x, y = _cloud(g, L, F, M, dev=dev), _cloud(g, L, F, V, dev=dev)
@@ -39,6 +44,56 @@ def test_rank_kernel_matches_plain(dev, L, F, M, V, with_bias):
     assert K.rank_nearest_cuda.launches == before + 1
     torch.testing.assert_close(idx.cpu(), K.rank_nearest_plain(x.cpu(), y.cpu(),
                                                                None if bias is None else bias.cpu()))
+
+
+def test_rank_kernel_single_vertex_bias(dev):
+    """A bias that leaves one vertex per lane: every query of the lane picks it."""
+    L, F, M, V = 3, 7, 41, 6890
+    g = torch.Generator().manual_seed(5)
+    x, y = _cloud(g, L, F, M, dev=dev), _cloud(g, L, F, V, dev=dev)
+    keep = torch.tensor([0, 4321, V - 1])
+    bias = torch.full((L, V), 1e10)
+    bias[torch.arange(L), keep] = 0.0
+    idx = K.rank_nearest(x, y, bias.to(dev))
+    assert (idx.cpu() == keep[:, None, None]).all()
+
+
+def test_rank_kernel_refuses_a_frame_too_large_for_shared_memory(dev):
+    """A frame the block cannot stage: the wrapper raises before launching,
+    naming the shared memory the frame needs and the limit, and the next
+    launch is clean."""
+    x = torch.zeros(1, 1, 4, 3, device=dev)
+    before = K.rank_nearest_cuda.launches
+    with pytest.raises(RuntimeError, match="uuo_rank_nearest: a frame of 20000 vertices needs"):
+        K.rank_nearest_cuda(x, torch.zeros(1, 1, 20000, 3, device=dev))
+    assert K.rank_nearest_cuda.launches == before
+    y = torch.randn(1, 1, 300, 3, device=dev)
+    assert torch.equal(K.rank_nearest(x, y).cpu(), K.rank_nearest_plain(x.cpu(), y.cpu()))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B, M, V", [(3, 41, 6890), (5, 70, 1000), (1, 300, 37), (7, 41, 2049)])
+def test_backward_kernel_is_repeatable_and_exact(dev, B, M, V):
+    """Odd B, ragged V tiles, many duplicate indices and some outside
+    [0, V) (which add nothing): two launches are bitwise equal, and equal
+    to the CPU plain version bit for bit."""
+    rng = np.random.RandomState(B * M + V)
+    idx = rng.randint(-3, V + 3, size=(B, M))
+    idx[:, : M // 2] = rng.randint(0, min(V, 5), size=(B, M // 2))  # duplicates
+    diff = rng.randn(B, M, 3).astype(np.float32)
+    gw = rng.randn(B, M).astype(np.float32)
+    args = [torch.as_tensor(a).to(dev) for a in (idx.astype(np.int32), diff, gw)]
+    before = K.min_sqdist_backward_cuda.launches
+    first = K.min_sqdist_backward(*args, V)
+    second = K.min_sqdist_backward(*args, V)
+    assert K.min_sqdist_backward_cuda.launches == before + 2
+    inside = (idx >= 0) & (idx < V)
+    ref = K.min_sqdist_backward_plain(torch.as_tensor(np.where(inside, idx, 0)),
+                                      torch.as_tensor(diff * inside[..., None]),
+                                      torch.as_tensor(gw * inside), V)
+    for a, b, r in zip(first, second, ref):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), r)
 
 
 @pytest.mark.parametrize("B, M, V", [(4, 41, 6890), (3, 6890, 41), (2, 50, 50), (2, 1000, 300)])

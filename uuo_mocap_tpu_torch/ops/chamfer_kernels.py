@@ -26,11 +26,13 @@ Counterparts (``uuo_mocap_tpu/ops/chamfer_pallas.py``):
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -50,7 +52,7 @@ class _Library:
 
     lib: Optional[ctypes.CDLL] = None
     path: Optional[str] = None
-    log: str = ""  # nvcc's output of the build this process ran (ptxas -v)
+    log: str = ""  # nvcc's output (ptxas -v) of the build of the loaded library
 
 
 def _nvcc() -> str:
@@ -63,30 +65,61 @@ def _nvcc() -> str:
 
 def build() -> ctypes.CDLL:
     """Compile ``csrc/chamfer.cu`` if its library is not built yet, load it,
-    and declare the C signatures.  Returns the loaded library."""
+    and declare the C signatures.  nvcc's output is kept beside the library
+    (``*.log``), so ``_Library.log`` holds it whichever process built it.
+    Returns the loaded library."""
     if _Library.lib is not None:
         return _Library.lib
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     path = os.path.join(BUILD_DIR, f"libuuo_chamfer_{digest}.so")
-    if not os.path.exists(path):
+    if not (os.path.exists(path) and os.path.exists(f"{path}.log")):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {SOURCE}:\n{proc.stdout}{proc.stderr}")
+        with open(f"{tmp}.log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(f"{tmp}.log", f"{path}.log")
         os.replace(tmp, path)
-        _Library.log = proc.stdout + proc.stderr
+    with open(f"{path}.log") as f:
+        _Library.log = f.read()
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.uuo_rank_nearest.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.uuo_min_sqdist_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.uuo_min_sqdist_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
-    for fn in (lib.uuo_rank_nearest, lib.uuo_min_sqdist_fwd, lib.uuo_min_sqdist_bwd):
+    lib.uuo_rank_smem.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong),
+                                  ctypes.POINTER(ctypes.c_longlong)]
+    for fn in (lib.uuo_rank_nearest, lib.uuo_min_sqdist_fwd, lib.uuo_min_sqdist_bwd,
+               lib.uuo_rank_smem):
         fn.restype = ctypes.c_int
     _Library.lib, _Library.path = lib, path
     return lib
+
+
+def ptxas_usage(log: str) -> List[dict]:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log (``_Library.log``): [{"kernel", "registers", "spill_stores",
+    "spill_loads"}] in the log's order; kernel names as ptxas gives them
+    (mangled)."""
+    rows: List[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            rows.append(dict(kernel=m.group(1), registers=None, spill_stores=0, spill_loads=0))
+            continue
+        if not rows:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rows[-1]["spill_stores"], rows[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...]) -> None:
@@ -117,14 +150,21 @@ def rank_nearest_cuda(markers: torch.Tensor, verts: torch.Tensor,
     bias [L, V] or None -> idx [L, F, M] int32.
 
     Replaces ``_rank_kernel`` (uuo_mocap_tpu/ops/chamfer_pallas.py:195-284).
-    One block per (lane, frame); bound on the H100 by FP32 issue rate at the
-    main path's shapes (see csrc/chamfer.cu)."""
+    One block per (lane, frame): the frame is staged once in shared memory,
+    each lane holds a few queries in registers (see csrc/chamfer.cu).  The
+    staged frame takes 16 bytes per vertex, so V is limited to about 14,000
+    on an H100; a larger V raises before the launch."""
     L, F, M, _ = markers.shape
     V = verts.shape[2]
     _check(markers, "markers", torch.float32, (L, F, M, 3))
     _check(verts, "verts", torch.float32, (L, F, V, 3))
     if bias is not None:
         _check(bias, "bias", torch.float32, (L, V))
+    need, limit = _rank_smem(M, V, markers.device.index or 0)
+    if need > limit:
+        raise RuntimeError(
+            f"uuo_rank_nearest: a frame of {V} vertices needs {need} B of shared memory "
+            f"(16 B per vertex, staged whole), more than the {limit} B a block may have")
     idx = torch.empty((L, F, M), dtype=torch.int32, device=markers.device)
     lib = build()
     err = lib.uuo_rank_nearest(markers.data_ptr(), verts.data_ptr(),
@@ -136,6 +176,16 @@ def rank_nearest_cuda(markers: torch.Tensor, verts: torch.Tensor,
 
 
 rank_nearest_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_smem(M: int, V: int, device: int) -> Tuple[int, int]:
+    """(dynamic shared memory the rank launch asks for, the most a block of
+    the device may have beside the kernel's static arrays), in bytes."""
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    _raise_on(build().uuo_rank_smem(M, V, device, ctypes.byref(need), ctypes.byref(limit)),
+              "uuo_rank_smem")
+    return need.value, limit.value
 
 
 def _frame_chunk(F: int, per_frame: int) -> int:
@@ -244,15 +294,17 @@ def min_sqdist_backward_cuda(idx: torch.Tensor, diff: torch.Tensor, g: torch.Ten
     [B, V] (sum of g per selected target).
 
     Replaces ``_bwd_kernel`` (uuo_mocap_tpu/ops/chamfer_pallas.py:125-189):
-    the TPU's one-hot matmul becomes an atomic scatter into zeroed outputs,
-    so the summation order (and the last bits of a sum of several rows)
-    varies from run to run.  Bound by writing the [B, V] outputs."""
+    the TPU's one-hot matmul becomes a scatter without atomics that writes
+    every output element once, each sum taken in the order m = 0, 1, ...,
+    so it repeats bit for bit and equals ``min_sqdist_backward_plain`` on
+    the CPU.  Indices outside [0, V) add nothing.  Bound by writing the
+    [B, V] outputs."""
     B, M = idx.shape
     _check(idx, "idx", torch.int32, (B, M))
     _check(diff, "diff", torch.float32, (B, M, 3))
     _check(g, "g", torch.float32, (B, M))
-    dy = torch.zeros((B, V, 3), dtype=torch.float32, device=idx.device)
-    dbias = torch.zeros((B, V), dtype=torch.float32, device=idx.device)
+    dy = torch.empty((B, V, 3), dtype=torch.float32, device=idx.device)
+    dbias = torch.empty((B, V), dtype=torch.float32, device=idx.device)
     lib = build()
     err = lib.uuo_min_sqdist_bwd(idx.data_ptr(), diff.data_ptr(), g.data_ptr(), dy.data_ptr(),
                                  dbias.data_ptr(), B, M, V, _stream(idx))
