@@ -7,18 +7,22 @@
    ``uuo_mocap_tpu_torch/csrc`` with nvcc and prints the build time.
 2. Kernel phase: every kernel against its plain PyTorch version on the card,
    at the main path's shapes (V = 6890 vertices, F = 450 frames, M = 41
-   markers): index agreement (at least 0.9999, and every disagreement a tie
+   markers; the forward in both directions, markers against vertices and
+   back): index agreement (at least 0.9999, and every disagreement a tie
    whose squared-distance gap is <= 1e-7 m^2), value error, the backward
    bit for bit (two launches, and the CPU plain version), kernel / plain /
-   bound times in ms; each kernel's registers and spill bytes from ptxas.
+   bound times in ms; each kernel instantiation's registers and spill bytes
+   from ptxas (every one listed in EXPECTED_KERNELS, none spilling).
 3. Path phase: one synthetic 450 x 41 sequence solved through
    ``multimodal_video_mocap(device="cuda")`` on the shipped
    ``configs/video_mocap.yaml`` (4 yaw hypotheses), with every launch count
-   reset just before and read just after; outputs must be finite, of the
-   reference's shapes, and within the random layout's 35 mm per-sequence
-   MPJPE gate.  Then the dense-gradient chamfer stage (the same stage with
-   ``single_directional: false``, the path that differentiates min_sqdist
-   and so launches the backward kernel) runs a few iterations.
+   reset just before and read just after (the forward counts its few-query
+   and many-query routes apart, and both must launch); outputs must be
+   finite, of the reference's shapes, and within the random layout's 35 mm
+   per-sequence MPJPE gate.  Then the dense-gradient chamfer stage (the
+   same stage with ``single_directional: false``, the path that
+   differentiates min_sqdist and so launches the backward kernel) runs a
+   few iterations.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Imports
@@ -54,6 +58,12 @@ AGREE_MIN = 0.9999
 # ~9e-5 (9.5 mm); float32 rounding of the O(1) centered terms measured <= 3.6e-7
 FWD_VAL_TOL = 1e-6
 SEED = 0
+# every kernel instantiation in csrc/chamfer.cu, as its mangled name shows
+# it: the staged kernel for Q = 1-7 queries per lane, for the rank pass (no
+# value) and the few-query forward (value; whole frame, or in chunks); the
+# many-query forward; the backward
+EXPECTED_KERNELS = ([f"nearest_stagedILi{q}ELb{v}ELb{c}E" for v, c in ((0, 0), (1, 0), (1, 1))
+                     for q in range(1, 8)] + ["nearest_many_queries", "min_sqdist_bwd_tiles"])
 F_FRAMES, N_MARKERS = 450, 41
 MPJPE_GATE_MM = 35.0  # the random layout's per-sequence gate
 
@@ -326,7 +336,9 @@ def path_phase(model, gt, markers, prior):
           f"{digest(*(out[k] for k in ('trans', 'root_orient', 'pose_body', 'betas')))}", flush=True)
     require(main_counts["rank_nearest_cuda"] > 0, "the main path never launched the rank kernel")
     require(main_counts["min_sqdist_forward_cuda"] > 0,
-            "the main path never launched the min_sqdist forward kernel")
+            "the main path never launched the min_sqdist forward kernel (few queries)")
+    require(main_counts["min_sqdist_forward_rev_cuda"] > 0,
+            "the main path never launched the min_sqdist forward kernel (many queries)")
 
     shapes = {"trans": (F, 3), "root_orient": (F, 1, 3, 3), "pose_body": (F, 23, 3, 3),
               "betas": (F, 10), "markers_labels": (F, M)}
@@ -393,22 +405,22 @@ def main() -> int:
     for u in usage:
         print(f"  ptxas: {u['kernel']}: {u['registers']} registers, spill stores "
               f"{u['spill_stores']} B, spill loads {u['spill_loads']} B")
-    redesigned = [u for u in usage
-                  if "rank_nearest_staged" in u["kernel"] or "min_sqdist_bwd_tiles" in u["kernel"]]
-    require(len(redesigned) == 9, f"ptxas lines for {len(redesigned)} of the 9 rank (Q = 1-8) "
-            "and backward instantiations")
-    for u in redesigned:  # the redesigned kernels must not spill
-        require(u["spill_stores"] == 0 and u["spill_loads"] == 0, f"{u['kernel']} spills")
+    for pattern in EXPECTED_KERNELS:  # each instantiation built once, none spills
+        rows = [u for u in usage if pattern in u["kernel"]]
+        require(len(rows) == 1, f"{len(rows)} ptxas lines match {pattern!r}, expected 1")
+        require(rows[0]["spill_stores"] == 0 and rows[0]["spill_loads"] == 0,
+                f"{rows[0]['kernel']} spills")
+    require(len(usage) == len(EXPECTED_KERNELS),
+            f"ptxas lists {len(usage)} kernels, expected {len(EXPECTED_KERNELS)}")
 
     model = synthetic_body_model(device="cuda")
     gt, markers, prior = make_sequence(model)
 
     kres = kernel_phase(model, gt, markers)
     main_counts, dense_counts, _ = path_phase(model, gt, markers, prior)
-    launches = {"rank_nearest_cuda": main_counts["rank_nearest_cuda"],
-                "min_sqdist_forward_cuda": main_counts["min_sqdist_forward_cuda"],
-                # not on the shipped config's path: counted on the dense stage
-                "min_sqdist_backward_cuda": dense_counts["min_sqdist_backward_cuda"]}
+    launches = dict(main_counts)
+    # not on the shipped config's path: counted on the dense stage
+    launches["min_sqdist_backward_cuda"] = dense_counts["min_sqdist_backward_cuda"]
     src = "uuo_mocap_tpu_torch/csrc/chamfer.cu"
     table = [
         dict(name="rank_nearest", route="cuda", source=src,
@@ -417,6 +429,9 @@ def main() -> int:
         dict(name="min_sqdist_forward", route="cuda", source=src,
              replaces="uuo_mocap_tpu/ops/chamfer_pallas.py:33",
              launches=launches["min_sqdist_forward_cuda"], **kres["min_sqdist_fwd"]),
+        dict(name="min_sqdist_forward_rev", route="cuda", source=src,
+             replaces="uuo_mocap_tpu/ops/chamfer_pallas.py:33",
+             launches=launches["min_sqdist_forward_rev_cuda"], **kres["min_sqdist_rev"]),
         dict(name="min_sqdist_backward", route="cuda", source=src,
              replaces="uuo_mocap_tpu/ops/chamfer_pallas.py:125",
              launches=launches["min_sqdist_backward_cuda"], **kres["min_sqdist_bwd"]),

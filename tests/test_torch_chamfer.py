@@ -68,6 +68,29 @@ def test_min_sqdist_forward_plain_matches_pallas(M, V):
     np.testing.assert_allclose(val_t.numpy(), np.asarray(val_j), atol=1e-5, rtol=0)
 
 
+def test_min_sqdist_reverse_plain_matches_jax_xla_path():
+    """The many-query direction at the main path's shape (6890 vertices
+    against 41 markers, a few batch elements), beyond the Pallas kernel's
+    64 queries: the plain version against the reference's XLA forward
+    (``_min_sqdist_fwd``'s argmin and ``min_sqdist``'s value), with the
+    reverse direction's bias (1e10 on occluded markers).  Indices exactly
+    (random clouds have no near-ties); values 1e-5."""
+    rng = np.random.RandomState(29)  # its own stream: RNG's later draws stay as they were
+    B, M, V = 3, 6890, 41
+    verts = (rng.randn(B, M, 3) * 0.3 + [0.4, 1.1, -0.2]).astype(np.float32)
+    markers = (rng.randn(B, V, 3) * 0.3 + [0.4, 1.1, -0.2]).astype(np.float32)
+    bias = ((rng.rand(B, V) > 0.9) * 1e10).astype(np.float32)
+    val_ref, (_, _, idx_ref) = jchamfer._min_sqdist_fwd(jnp.asarray(verts), jnp.asarray(markers),
+                                                        jnp.asarray(bias))
+    val_j = jchamfer.min_sqdist(jnp.asarray(verts), jnp.asarray(markers), jnp.asarray(bias))
+    val_t, idx_t = K.min_sqdist_forward(torch.as_tensor(verts), torch.as_tensor(markers),
+                                        torch.as_tensor(bias))
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_ref))
+    assert (bias[np.arange(B)[:, None], idx_t.numpy()] == 0).all()
+    np.testing.assert_allclose(val_t.numpy(), np.asarray(val_j), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(val_t.numpy(), np.asarray(val_ref), atol=1e-5, rtol=0)
+
+
 def test_min_sqdist_backward_matches_jax_grad():
     B, M, V = 3, 23, 300
     x = _cloud(B, M)
@@ -194,5 +217,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         K.min_sqdist_backward_cuda(torch.zeros(2, 4, dtype=torch.int32), torch.zeros(2, 4, 3),
                                    torch.zeros(2, 4), 5)
+    with pytest.raises(ValueError):
+        K.min_sqdist_forward_cuda(torch.zeros(2, 6, 3), torch.zeros(2, 5, 3), torch.zeros(2, 5))
     assert K.launch_counts() == {"rank_nearest_cuda": 0, "min_sqdist_forward_cuda": 0,
-                                 "min_sqdist_backward_cuda": 0}
+                                 "min_sqdist_forward_rev_cuda": 0, "min_sqdist_backward_cuda": 0}

@@ -29,7 +29,7 @@ def _cloud(g, *shape, dev):
     return torch.randn(*shape, 3, generator=g).to(dev) + torch.tensor([1.0, -2.0, 0.5], device=dev)
 
 
-# M in {1, 17, 41, 64, 70} (above 64: 9 query groups of 8); odd L * F and
+# M in {1, 17, 41, 64, 70} (70: 10 query groups of 7); odd L * F and
 # V with 3V not a multiple of 4, so frames start at every 16-byte
 # misalignment
 @pytest.mark.parametrize("L, F, M, V, with_bias", [(3, 19, 17, 701, False), (3, 5, 41, 6890, True),
@@ -96,15 +96,82 @@ def test_backward_kernel_is_repeatable_and_exact(dev, B, M, V):
         assert torch.equal(a.cpu(), r)
 
 
-@pytest.mark.parametrize("B, M, V", [(4, 41, 6890), (3, 6890, 41), (2, 50, 50), (2, 1000, 300)])
+def _body_cloud(g, *shape, dev):
+    """Points at a body's scale (0.3 m spread around a hip-height centre),
+    where a float32 key rounds by ~6e-8 m^2."""
+    pts = torch.randn(*shape, 3, generator=g) * 0.3 + torch.tensor([0.4, 1.1, -0.2])
+    return pts.to(dev)
+
+
+def _assert_forward_matches_plain(x, y, bias, val, idx):
+    """The forward's tolerances (chip_smoke.py): every pick that differs from
+    the plain version's is a tie whose float64 d2 gap is <= 1e-7 m^2, and
+    every value is within 1e-6 m^2 of the plain version's."""
+    val_p, idx_p = K.min_sqdist_forward_plain(x.cpu(), y.cpu(), bias.cpu())
+    idx = idx.cpu().long()
+
+    def d2(i):
+        yb = torch.gather(y.cpu().double(), 1, i[..., None].expand(*i.shape, 3))
+        return ((x.cpu().double() - yb) ** 2).sum(-1) + torch.gather(bias.cpu().double(), 1, i)
+
+    gap = (d2(idx) - d2(idx_p)).abs()
+    assert bool((gap[idx != idx_p] <= 1e-7).all()), float(gap.max())
+    np.testing.assert_allclose(val.cpu().numpy(), val_p.numpy(), atol=1e-6, rtol=0)
+
+
+# few queries (M <= V): odd B at V = 6890 (frames start at every 16-byte
+# misalignment), M = 1, and V = 20000, beyond one frame's shared memory
+# (staged in chunks); many queries (M > V): 6890 against 41 with odd B
+# (elements start off the 4-query grid), 1000 against 300, 3000 against
+# 1500 (targets in two tiles), and M = 2000 > 1024 against V = 5000
+@pytest.mark.parametrize("B, M, V", [(4, 41, 6890), (3, 6890, 41), (2, 50, 50), (2, 1000, 300),
+                                     (5, 41, 6890), (3, 1, 6890), (2, 41, 20000), (5, 6890, 41),
+                                     (2, 3000, 1500), (2, 2000, 5000)])
 def test_min_sqdist_forward_kernel_matches_plain(dev, B, M, V):
     g = torch.Generator().manual_seed(B + M + V)
-    x, y = _cloud(g, B, M, dev=dev), _cloud(g, B, V, dev=dev)
+    x, y = _body_cloud(g, B, M, dev=dev), _body_cloud(g, B, V, dev=dev)
     bias = ((torch.rand(B, V, generator=g) > 0.7).float() * 1e10).to(dev)
+    staged = M <= min(V, K.STAGED_MAX_M)
+    before = K.launch_counts()
     val, idx = K.min_sqdist_forward_cuda(x, y, bias)
-    val_p, idx_p = K.min_sqdist_forward_plain(x.cpu(), y.cpu(), bias.cpu())
-    np.testing.assert_array_equal(idx.cpu().long().numpy(), idx_p.numpy())
-    np.testing.assert_allclose(val.cpu().numpy(), val_p.numpy(), atol=1e-5, rtol=0)
+    after = K.launch_counts()
+    assert after["min_sqdist_forward_cuda"] - before["min_sqdist_forward_cuda"] == int(staged)
+    assert after["min_sqdist_forward_rev_cuda"] - before["min_sqdist_forward_rev_cuda"] == int(not staged)
+    _assert_forward_matches_plain(x, y, bias, val, idx)
+
+
+@pytest.mark.parametrize("B, M, V", [(3, 41, 6890), (3, 6890, 41)])
+def test_min_sqdist_forward_kernel_single_target_bias(dev, B, M, V):
+    """Every target but one per row carries the 1e10 bias: every query of
+    the row picks that one, at its own distance."""
+    g = torch.Generator().manual_seed(11 + M)
+    x, y = _body_cloud(g, B, M, dev=dev), _body_cloud(g, B, V, dev=dev)
+    keep = torch.tensor([0, V // 2, V - 1])
+    bias = torch.full((B, V), 1e10)
+    bias[torch.arange(B), keep] = 0.0
+    val, idx = K.min_sqdist_forward_cuda(x, y, bias.to(dev))
+    assert (idx.cpu().long() == keep[:, None]).all()
+    _assert_forward_matches_plain(x, y, bias.to(dev), val, idx)
+
+
+@pytest.mark.parametrize("B, M, V", [(3, 41, 6890), (3, 6890, 41)])
+def test_min_sqdist_forward_kernel_unaligned_inputs(dev, B, M, V):
+    """Inputs that do not start on 16 bytes (views one float into a
+    buffer): both routes give what they give on aligned copies."""
+    g = torch.Generator().manual_seed(17 + M)
+    x, y = _body_cloud(g, B, M, dev=dev), _body_cloud(g, B, V, dev=dev)
+    bias = ((torch.rand(B, V, generator=g) > 0.7).float() * 1e10).to(dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    val, idx = K.min_sqdist_forward_cuda(shifted(x), shifted(y), shifted(bias))
+    val_a, idx_a = K.min_sqdist_forward_cuda(x, y, bias)
+    assert torch.equal(idx, idx_a) and torch.equal(val, val_a)
+    _assert_forward_matches_plain(x, y, bias, val, idx)
 
 
 def test_min_sqdist_gradient_on_cuda_matches_cpu(dev):

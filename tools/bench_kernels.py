@@ -9,17 +9,18 @@ path and builds its own ``csrc/chamfer.cu``; this checkout is the tree
 ``uuo_mocap_tpu_torch`` unpacked from ``git archive`` into a directory that
 .gitignore lists) is named with ``--tree parent=DIR``.  On chip_smoke.py's
 inputs at the main path's shapes (rank at L = 4 without bias and at L = 8
-with the subtree bias, F = 450, M = 41, V = 6890; the forward at B = 3600;
-the backward at B = 1800) each kernel is timed through its wrapper, output
+with the subtree bias, F = 450, M = 41, V = 6890; the forward at B = 3600
+in both directions, 41 markers against 6890 vertices and back; the
+backward at B = 1800) each kernel is timed through its wrapper, output
 allocation included, with CUDA events over ``TIMING_ITERS`` launches: the
 trees in the order given, then reversed (parent, this, this, parent), with
 ``index_add_`` and a zero fill of the same bytes beside the backward.
 Prints the nvidia-smi line before and after, one JSON line per timing, the
-picks' agreement with this tree (for the rank kernel also the largest gap
-in squared distance between a tree's pick and this tree's, in m^2), and the
-mean of each tree's timings.
-``--diagnose`` adds copies of this tree with one part of the rank kernel
-taken out (``DIAGNOSTICS``), to show where its time goes.  Imports nothing
+picks' agreement with this tree and the largest gap in squared distance
+between a tree's pick and this tree's, in m^2 (for the forward also the
+largest value difference), and the mean of each tree's timings.
+``--diagnose`` adds copies of this tree with one part of a kernel taken
+out (``DIAGNOSTICS``), to show where its time goes.  Imports nothing
 of JAX.
 """
 from __future__ import annotations
@@ -36,23 +37,34 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 TIMING_ITERS = 50  # launches per timing
+FORWARD_CASES = ("forward", "reverse")  # these return (value, index)
 
 
-# --diagnose: copies of this tree's kernel source with one part of the rank
-# kernel taken out, timed beside it to show where its time goes (their
-# picks are wrong by design).  name -> (what is taken out, substitutions)
+# --diagnose: copies of this tree's kernel source with one part of a kernel
+# taken out, timed beside it to show where its time goes (their picks are
+# wrong by design).  The rank pass and the few-query forward share the
+# staged kernel, so its variants show in both cases.
+# name -> (what is taken out, substitutions)
 DIAGNOSTICS = {
-    "rank_no_scan": ("the scan (left: copy, centroid, rewrite, final reduce)", [(
+    "staged_no_scan": ("the staged kernel's scan (left: copy, centroid, rewrite, final reduce)", [(
         "for (int item = warp; item < groups * splits; item += nwarps) {",
         "for (int item = warp + (1 << 30); item < groups * splits; item += nwarps) {")]),
-    "rank_no_copy": ("the frame's HBM copy (the scan reads stale shared memory)", [(
-        "cp_async16(s_f + R + head + 4 * i, tb + head + 4 * i);", "(void)i;")]),
-    "rank_2fma": ("one of the three FMAs per pair", [(
+    "staged_no_copy": ("the staged kernel's HBM copy (the scan reads stale shared memory)", [(
+        "cp_async16(s_f + R + head + 4 * i, tc + head + 4 * i);", "(void)i;")]),
+    "staged_2fma": ("one of the staged kernel's three FMAs per pair", [(
         "return fmaf(qx, t.x, fmaf(qy, t.y, fmaf(qz, t.z, t.w)));",
         "return fmaf(qx, t.x, fmaf(qy, t.y, t.w));")]),
-    "rank_fadd": ("the min per pair (an add in its place)", [(
+    "staged_fadd": ("the staged kernel's min per pair (an add in its place)", [(
         "gmin[i] = fminf(gmin[i], rank_key(qx[i], qy[i], qz[i], tt));",
         "gmin[i] = gmin[i] + rank_key(qx[i], qy[i], qz[i], tt);")]),
+    "many_no_scan": ("the many-query kernel's scan (left: loads, staging, stores)", [(
+        "for (int i = 0; i < n; ++i) {\n        const float4 tt = s_t[i];",
+        "for (int i = n; i < n; ++i) {\n        const float4 tt = s_t[i];")]),
+    "many_no_load": ("the many-query kernel's 16-byte query loads (constant queries)", [(
+        "const float4 a = qp[i];", "const float4 a = make_float4(i, 0.5f, 0.25f, i);")]),
+    "many_min_only": ("the many-query kernel's index tracking (a min in place of the select)", [(
+        "          if (d < best[j]) {\n            best[j] = d;\n            bi[j] = v0 + i;\n          }",
+        "          best[j] = fminf(best[j], d);")]),
 }
 
 
@@ -93,7 +105,7 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="LABEL=DIR",
                     help="another checkout to time beside this one")
     ap.add_argument("--diagnose", action="store_true",
-                    help="also time this tree's rank kernel with parts taken out (DIAGNOSTICS)")
+                    help="also time this tree's kernels with parts taken out (DIAGNOSTICS)")
     args = ap.parse_args()
 
     import torch
@@ -121,7 +133,7 @@ def main() -> int:
     model = synthetic_body_model(device="cuda")
     gt, markers, _ = make_sequence(model)
     V = model.num_vertices
-    cases, gaps = {}, {}
+    cases, gaps, n_targets = {}, {}, {}
     for L, with_bias in ((4, False), (8, True)):
         mk, verts, bias = rank_inputs(model, gt, markers, L, with_bias)
         F, M = mk.shape[1], mk.shape[2]
@@ -130,13 +142,18 @@ def main() -> int:
         cases[f"rank_L{L}"] = (lambda K, a=(mk, verts, bias): K.rank_nearest_cuda(*a),
                                bound(nbytes, B * M * V * FLOPS_PER_PAIR))
         bb = None if bias is None else bias[:, None, :].expand(L, F, V).reshape(B, V)
+        n_targets[f"rank_L{L}"] = V
         gaps[f"rank_L{L}"] = lambda a, b, q=mk.reshape(B, M, 3), t=verts.reshape(B, V, 3), bb=bb: \
             float(pick_gap(q, t, bb, a.reshape(q.shape[:2]), b.reshape(q.shape[:2])).max())
-    x, fverts, vbias, _ = forward_inputs(model, gt, markers)
+    x, fverts, vbias, mbias = forward_inputs(model, gt, markers)
     B, M = x.shape[0], x.shape[1]
-    cases["forward"] = (lambda K: K.min_sqdist_forward_cuda(x, fverts, vbias)[1],
-                        bound((x.numel() + fverts.numel() + vbias.numel()) * 4 + B * M * 8,
-                              B * M * V * FLOPS_PER_PAIR))
+    for case, q, t, b in zip(FORWARD_CASES, (x, fverts), (fverts, x), (vbias, mbias)):
+        Mq, Vt = q.shape[1], t.shape[1]
+        cases[case] = (lambda K, a=(q, t, b): K.min_sqdist_forward_cuda(*a),
+                       bound((q.numel() + t.numel() + b.numel()) * 4 + B * Mq * 8,
+                             B * Mq * Vt * FLOPS_PER_PAIR))
+        gaps[case] = lambda a, b_, q=q, t=t, bb=b: float(pick_gap(q, t, bb, a, b_).max())
+        n_targets[case] = Vt
     idx, diff, gw = backward_inputs(V)
     B, M = idx.shape
     cases["backward"] = (lambda K: K.min_sqdist_backward_cuda(idx, diff, gw, V),
@@ -144,15 +161,24 @@ def main() -> int:
 
     order = [label for label, _ in trees]
     order = order + order[::-1]
+    # a process's first timed launches run slow (rank L=4 on an H100: 0.1912
+    # ms against 0.1784 ms later in the same process): one untimed round
+    # before any timing
+    first_call = next(iter(cases.values()))[0]
+    time_ms(lambda: first_call(mods["this"]), TIMING_ITERS)
     summary = {}
     for case, (call, (b_ms, b_by)) in cases.items():
         ref = call(mods["this"])
         for label in order:
             out = call(mods[label])
             if case != "backward":
-                same = {"agreement_with_this": float((out == ref).float().mean())}
-                if case in gaps:
-                    same["max_gap_from_this_m2"] = gaps[case](out, ref)
+                picks, ref_picks = (out[1], ref[1]) if case in FORWARD_CASES else (out, ref)
+                same = {"agreement_with_this": float((picks == ref_picks).float().mean()),
+                        # a diagnostic copy's picks may lie outside [0, V)
+                        "max_gap_from_this_m2": gaps[case](picks, ref_picks)
+                        if bool(((picks >= 0) & (picks < n_targets[case])).all()) else None}
+                if case in FORWARD_CASES:
+                    same["max_value_diff_from_this"] = float((out[0] - ref[0]).abs().max())
             else:
                 same = {"max_diff_from_this": float(max((a - r).abs().max()
                                                         for a, r in zip(out, ref)))}

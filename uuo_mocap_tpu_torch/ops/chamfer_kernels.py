@@ -10,7 +10,8 @@ Each kernel has
   * a wrapper (``*_cuda``) that checks device, dtype, shape and contiguity,
     allocates the outputs, launches on ``torch.cuda.current_stream()``,
     raises when the launch is refused, and counts its launches in a plain
-    int attribute ``launches``;
+    int attribute ``launches`` (the forward counts its many-query route in
+    ``launches_rev``; ``launch_counts()`` reads them all);
   * a plain PyTorch version (``*_plain``) with the reference's arithmetic,
     used for CPU tensors and by ``chip_smoke.py``'s comparison (the kernels
     leave each query's constant |x|^2 out of the scan and add it to the
@@ -89,12 +90,13 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.uuo_rank_nearest.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.uuo_min_sqdist_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.uuo_min_sqdist_fwd.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_longlong, p]
+    lib.uuo_min_sqdist_fwd_rev.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.uuo_min_sqdist_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.uuo_rank_smem.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong),
-                                  ctypes.POINTER(ctypes.c_longlong)]
-    for fn in (lib.uuo_rank_nearest, lib.uuo_min_sqdist_fwd, lib.uuo_min_sqdist_bwd,
-               lib.uuo_rank_smem):
+    lib.uuo_staged_smem.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong),
+                                    ctypes.POINTER(ctypes.c_longlong)]
+    for fn in (lib.uuo_rank_nearest, lib.uuo_min_sqdist_fwd, lib.uuo_min_sqdist_fwd_rev,
+               lib.uuo_min_sqdist_bwd, lib.uuo_staged_smem):
         fn.restype = ctypes.c_int
     _Library.lib, _Library.path = lib, path
     return lib
@@ -151,7 +153,8 @@ def rank_nearest_cuda(markers: torch.Tensor, verts: torch.Tensor,
 
     Replaces ``_rank_kernel`` (uuo_mocap_tpu/ops/chamfer_pallas.py:195-284).
     One block per (lane, frame): the frame is staged once in shared memory,
-    each lane holds a few queries in registers (see csrc/chamfer.cu).  The
+    each lane holds a few queries in registers (``nearest_staged`` in
+    csrc/chamfer.cu, the forward's few-query kernel without its value).  The
     staged frame takes 16 bytes per vertex, so V is limited to about 14,000
     on an H100; a larger V raises before the launch."""
     L, F, M, _ = markers.shape
@@ -160,7 +163,7 @@ def rank_nearest_cuda(markers: torch.Tensor, verts: torch.Tensor,
     _check(verts, "verts", torch.float32, (L, F, V, 3))
     if bias is not None:
         _check(bias, "bias", torch.float32, (L, V))
-    need, limit = _rank_smem(M, V, markers.device.index or 0)
+    need, limit = _staged_smem(M, V, markers.device.index or 0)
     if need > limit:
         raise RuntimeError(
             f"uuo_rank_nearest: a frame of {V} vertices needs {need} B of shared memory "
@@ -179,12 +182,13 @@ rank_nearest_cuda.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _rank_smem(M: int, V: int, device: int) -> Tuple[int, int]:
-    """(dynamic shared memory the rank launch asks for, the most a block of
-    the device may have beside the kernel's static arrays), in bytes."""
+def _staged_smem(M: int, V: int, device: int) -> Tuple[int, int]:
+    """(dynamic shared memory the staged kernel asks for to stage a whole
+    frame, the most a block of the device may have beside the kernel's
+    static arrays), in bytes."""
     need, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    _raise_on(build().uuo_rank_smem(M, V, device, ctypes.byref(need), ctypes.byref(limit)),
-              "uuo_rank_smem")
+    _raise_on(build().uuo_staged_smem(M, V, device, ctypes.byref(need), ctypes.byref(limit)),
+              "uuo_staged_smem")
     return need.value, limit.value
 
 
@@ -226,15 +230,26 @@ def rank_nearest(markers: torch.Tensor, verts: torch.Tensor,
 
 # ------------------------------------------------------ min_sqdist forward
 
+# the few-query route (the staged kernel) takes M <= min(V, STAGED_MAX_M);
+# any other M goes to the many-query kernel
+STAGED_MAX_M = 1024
+
+
 def min_sqdist_forward_cuda(x: torch.Tensor, y: torch.Tensor,
                             bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel ``uuo_min_sqdist_fwd``: x [B, M, 3], y [B, V, 3], bias [B, V]
-    -> (min d2 + bias clamped >= 0 [B, M] float32, argmin [B, M] int32).
+    """Kernel ``uuo_min_sqdist_fwd`` / ``uuo_min_sqdist_fwd_rev``: x [B, M, 3],
+    y [B, V, 3], bias [B, V] -> (min d2 + bias clamped >= 0 [B, M] float32,
+    argmin [B, M] int32).
 
     Replaces ``_kernel`` (uuo_mocap_tpu/ops/chamfer_pallas.py:33-122)
-    without its M <= 64 limit: few queries split the targets across a block,
-    many queries (the 6890-vertices-against-41-markers reverse direction)
-    get a thread each.  FP32-rate bound at the main path's shapes."""
+    without its M <= 64 limit, by two routes, each with its own launch
+    count: few queries (M <= V, M <= ``STAGED_MAX_M``; ``launches``) run
+    the rank kernel's design with a value output, the frame staged once in
+    shared memory (in chunks when it does not fit) and the queries in
+    registers; many queries (the 6890-vertices-against-41-markers reverse
+    direction; ``launches_rev``) give each thread four consecutive queries
+    against targets staged once per block and element (see
+    csrc/chamfer.cu)."""
     B, M, _ = x.shape
     V = y.shape[1]
     _check(x, "x", torch.float32, (B, M, 3))
@@ -243,14 +258,19 @@ def min_sqdist_forward_cuda(x: torch.Tensor, y: torch.Tensor,
     val = torch.empty((B, M), dtype=torch.float32, device=x.device)
     idx = torch.empty((B, M), dtype=torch.int32, device=x.device)
     lib = build()
-    err = lib.uuo_min_sqdist_fwd(x.data_ptr(), y.data_ptr(), bias.data_ptr(), val.data_ptr(),
-                                 idx.data_ptr(), B, M, V, _stream(x))
-    _raise_on(err, "uuo_min_sqdist_fwd")
-    min_sqdist_forward_cuda.launches += 1
+    args = (x.data_ptr(), y.data_ptr(), bias.data_ptr(), val.data_ptr(), idx.data_ptr(), B, M, V)
+    if M <= min(V, STAGED_MAX_M):
+        _, limit = _staged_smem(M, V, x.device.index or 0)
+        _raise_on(lib.uuo_min_sqdist_fwd(*args, limit, _stream(x)), "uuo_min_sqdist_fwd")
+        min_sqdist_forward_cuda.launches += 1
+    else:
+        _raise_on(lib.uuo_min_sqdist_fwd_rev(*args, _stream(x)), "uuo_min_sqdist_fwd_rev")
+        min_sqdist_forward_cuda.launches_rev += 1
     return val, idx
 
 
 min_sqdist_forward_cuda.launches = 0
+min_sqdist_forward_cuda.launches_rev = 0
 
 
 def min_sqdist_forward_plain(x: torch.Tensor, y: torch.Tensor,
@@ -338,13 +358,20 @@ def min_sqdist_backward(idx: torch.Tensor, diff: torch.Tensor, g: torch.Tensor,
     return min_sqdist_backward_plain(idx, diff, g, V)
 
 
-KERNELS = (rank_nearest_cuda, min_sqdist_forward_cuda, min_sqdist_backward_cuda)
+# launch counters: name -> (wrapper, attribute); the forward counts each
+# route on its own
+COUNTERS = {
+    "rank_nearest_cuda": (rank_nearest_cuda, "launches"),
+    "min_sqdist_forward_cuda": (min_sqdist_forward_cuda, "launches"),
+    "min_sqdist_forward_rev_cuda": (min_sqdist_forward_cuda, "launches_rev"),
+    "min_sqdist_backward_cuda": (min_sqdist_backward_cuda, "launches"),
+}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
