@@ -12,8 +12,27 @@
    whose squared-distance gap is <= 1e-7 m^2), value error, the backward
    bit for bit (two launches, and the CPU plain version), kernel / plain /
    bound times in ms; each kernel instantiation's registers and spill bytes
-   from ptxas (every one listed in EXPECTED_KERNELS, none spilling).
-3. Path phase: one synthetic 450 x 41 sequence solved through
+   from ptxas (every one listed in EXPECTED_KERNELS, none spilling).  The
+   batch path's widest shapes are held the same way: rank at L = 16 lanes x
+   450 frames with the subtree bias (the part fit's working set) and the
+   forward at the first hypothesis cull (16 lanes x 450 frames).
+3. Batch phase (the main path): four synthetic 450 x 41 sequences made as
+   ``bench.py:_make_batch_inner`` makes its random-layout batch (seed0 =
+   2000), solved by ``MultiSequenceSolver(device="cuda").solve_prepared``
+   on ``configs/video_mocap.yaml`` with ``bench.py``'s parallel settings
+   (lane width 16, padded widths, the hypothesis cascade 50,150 / keep 2,1,
+   the part tournament 15 / keep 2) but frame stride 1 in both hypothesis
+   rounds, where bench.py strides the first round by 2: with betas shared
+   by a lane's frames the strided round lands this batch 0.17 mm over the
+   median gate (``tools/batch_variants.py``, PERF.md).  Every launch count
+   is reset just before and read just after; the rank kernel and both
+   forward routes must launch.  Outputs must be finite, of the reference's
+   shapes, with betas the same in every frame, and the per-sequence MPJPE
+   within ``bench.py``'s random-layout gates (mean and median <= 25 mm, max
+   <= 35 mm).  Prints the solve time, frames per second, stage times, L-BFGS
+   evaluation counts, the winning hypotheses, launches per stage call and
+   an output digest.
+4. Single-sequence phase: one synthetic 450 x 41 sequence solved through
    ``multimodal_video_mocap(device="cuda")`` on the shipped
    ``configs/video_mocap.yaml`` (4 yaw hypotheses), with every launch count
    reset just before and read just after (the forward counts its few-query
@@ -24,7 +43,9 @@
    differentiates min_sqdist and so launches the backward kernel) runs a
    few iterations.
 
-Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+Prints the batch's launch counts as a ``{"batch_launches": {...}}`` line,
+then a ``{"kernels": [...]}`` line (launches from the batch phase, the main
+path; the backward's from the dense stage), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Imports
 nothing of JAX.
 """
@@ -66,6 +87,12 @@ EXPECTED_KERNELS = ([f"nearest_stagedILi{q}ELb{v}ELb{c}E" for v, c in ((0, 0), (
                      for q in range(1, 8)] + ["nearest_many_queries", "min_sqdist_bwd_tiles"])
 F_FRAMES, N_MARKERS = 450, 41
 MPJPE_GATE_MM = 35.0  # the random layout's per-sequence gate
+# the batch phase: bench.py's official batch and its random-layout gates
+# (GATES_MM: mean and median <= 25 mm, per-sequence max <= 35 mm)
+BATCH, BATCH_SEED0 = 4, 2000
+BATCH_GATES_MM = (25.0, 35.0)
+# the hypothesis rounds' frame stride (bench.py's is 2,1; see the docstring)
+BATCH_FRAME_STRIDE = 1
 
 
 def require(cond: bool, msg: str) -> None:
@@ -158,18 +185,21 @@ def lanes_verts(model, gt, L):
 
 def subtree_bias(model, L):
     """The part closure's vertex-exclusion bias [L, V]: 1e10 outside each
-    lane's 11-bone subtree."""
+    lane's 11-bone subtree (the subtrees repeated when L exceeds them)."""
+    import numpy as np
     import torch
 
     from uuo_mocap_tpu_torch.pipeline.part_fit import enumerate_subtree_masks
 
     masks, _ = enumerate_subtree_masks(model, num_bones=11)
-    return ((1.0 - torch.as_tensor(masks[:L], device="cuda")) * 1e10).contiguous()
+    rows = masks[np.arange(L) % masks.shape[0]]
+    return ((1.0 - torch.as_tensor(rows, device="cuda")) * 1e10).contiguous()
 
 
 def rank_inputs(model, gt, markers, L, with_bias):
     """The rank kernel's inputs at the main path's shapes: the chamfer
-    closure (L = 4, no bias) or the part closure (L = 8, subtree bias)."""
+    closure (L = 4, no bias) or the part closure (L = 8 for one sequence,
+    16 for the batch's working set; subtree bias)."""
     F, M = markers.shape[0], markers.shape[1]
     mk = markers[None].expand(L, F, M, 3).contiguous()
     return mk, lanes_verts(model, gt, L), subtree_bias(model, L) if with_bias else None
@@ -188,6 +218,17 @@ def forward_inputs(model, gt, markers, L=8):
     occluded = (markers.abs().sum(-1) == 0).float() * 1e10  # [F, M]
     mbias = occluded[None].expand(L, F, M).reshape(B, M).contiguous()
     return x, verts, vbias, mbias
+
+
+def cull_inputs(model, gt, markers, L=16, stride=BATCH_FRAME_STRIDE):
+    """The forward's inputs at the batch's first hypothesis cull: L lanes
+    (4 sequences x 4 hypotheses) at every ``stride``-th frame, markers
+    [B, M, 3] against vertices [B, V, 3] (the single-directional score)."""
+    M, V = markers.shape[1], model.num_vertices
+    verts = lanes_verts(model, gt, L)[:, ::stride].contiguous()
+    B = verts.shape[0] * verts.shape[1]
+    x = markers[::stride][None].expand(L, -1, M, 3).reshape(B, M, 3).contiguous()
+    return x, verts.reshape(B, V, 3)
 
 
 def backward_inputs(V, F=F_FRAMES, M=N_MARKERS):
@@ -224,8 +265,9 @@ def kernel_phase(model, gt, markers):
     results = {}
 
     # ---- rank kernel: the chamfer closure (L = 4, no bias) and the part
-    #      closure (L = 8, subtree exclusion bias)
-    for L, with_bias in ((4, False), (8, True)):
+    #      closure (L = 8, and the batch's 16-lane working set; subtree
+    #      exclusion bias)
+    for L, with_bias in ((4, False), (8, True), (16, True)):
         mk, verts, bias = rank_inputs(model, gt, markers, L, with_bias)
         idx_k = K.rank_nearest_cuda(mk, verts, bias)
         torch.cuda.synchronize()
@@ -248,10 +290,14 @@ def kernel_phase(model, gt, markers):
                                      bound_by=b_by, library_ms=None, agreement=agree)
         del verts
 
-    # ---- min_sqdist forward: part-fit scoring, both directions (S = 8 lanes)
+    # ---- min_sqdist forward: part-fit scoring, both directions (S = 8
+    #      lanes), and the batch's first hypothesis cull (16 lanes, no bias)
     x, verts, vbias, mbias = forward_inputs(model, gt, markers)
-    B = x.shape[0]
-    for name, q, t, b in (("fwd", x, verts, vbias), ("rev", verts, x, mbias)):
+    xc, vc = cull_inputs(model, gt, markers)
+    cases = (("fwd", x, verts, vbias), ("rev", verts, x, mbias),
+             ("fwd_cull", xc, vc, torch.zeros(vc.shape[:2], device="cuda")))
+    for name, q, t, b in cases:
+        B = q.shape[0]
         val_k, idx_k = K.min_sqdist_forward_cuda(q, t, b)
         torch.cuda.synchronize()
         val_p, idx_p = K.min_sqdist_forward_plain(q, t, b)
@@ -273,7 +319,7 @@ def kernel_phase(model, gt, markers):
         results[f"min_sqdist_{name}"] = dict(max_abs_err=val_err, ms=ms, plain_ms=plain_ms,
                                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
                                             agreement=agree)
-    del verts
+    del verts, vc
 
     # ---- min_sqdist backward: the dense chamfer closure's shape (A = 4 lanes).
     #      No atomics: two launches must agree bit for bit, and with the
@@ -303,11 +349,152 @@ def kernel_phase(model, gt, markers):
     return results
 
 
-def path_phase(model, gt, markers, prior):
+def bench_parallel_config():
+    """``configs/video_mocap.yaml`` with ``bench.py:479-534``'s parallel
+    settings (its defaults, no environment overrides), the hypothesis
+    rounds at ``BATCH_FRAME_STRIDE``."""
+    from uuo_mocap_tpu_torch.data.config import load_config
+
+    cfg = load_config(os.path.join(HERE, "configs", "video_mocap.yaml"))
+    cfg["parallel"] = {
+        "lane_width": 16, "part_lane_width": 16, "pad_width": True,
+        "hypothesis_prune": {"enabled": True, "at_iters": [50, 150], "keep": [2, 1],
+                             "rank_phase1": False, "frame_stride": BATCH_FRAME_STRIDE},
+        "part_prune": {"enabled": True, "at_iters": 15, "keep": 2, "frame_stride": 1},
+    }
+    return cfg
+
+
+def make_batch(model, seed0=BATCH_SEED0):
+    """``bench.py:_make_batch_inner``'s random-layout batch through the
+    port's generators: sequence q has ground truth seed seed0 + 3q, markers
+    seed0 + 3q + 1 (41, 5 % occlusion), prior seed0 + 3q + 2 (bench.py's
+    noise).  -> (ground truths, prepared sequences)."""
+    from uuo_mocap_tpu_torch.data.img_smpl import ImgSmpl
+    from uuo_mocap_tpu_torch.data.markers import ArrayMarkers
+    from uuo_mocap_tpu_torch.data.synthetic import (
+        generate_markers, perturb_params, random_pose_sequence)
+    from uuo_mocap_tpu_torch.pipeline.multimodal import prepare_sequence
+
+    gts, preps = [], []
+    for q in range(BATCH):
+        s = seed0 + 3 * q
+        gt = random_pose_sequence(F_FRAMES, seed=s, yaw=0.9, travel=0.5, device="cuda")
+        markers = generate_markers(model, gt, num_markers=N_MARKERS, seed=s + 1,
+                                   occlusion_rate=0.05)
+        prior = perturb_params(gt, seed=s + 2, pose_noise=0.05, trans_noise=0.08, betas_noise=0.2)
+        preps.append(prepare_sequence(ImgSmpl.from_params(prior),
+                                      ArrayMarkers(markers.points.cpu().numpy()), frame_bucket=None))
+        gts.append(gt)
+    return gts, preps
+
+
+def count_stage_launches(obj, names, log):
+    """Wrap the methods ``names`` of ``obj`` (on the instance) so that each
+    call appends (name, launches during the call) to ``log``."""
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+
+    def wrap(name, fn):
+        def run(*args, **kw):
+            before = K.launch_counts()
+            out = fn(*args, **kw)
+            after = K.launch_counts()
+            log.append((name, {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+            return out
+
+        return run
+
+    for name in names:
+        setattr(obj, name, wrap(name, getattr(obj, name)))
+
+
+def mpjpe_mm(model, out, gt) -> float:
+    """Per-sequence MPJPE (22 body joints) of a solve's output against the
+    generating ground truth, in mm."""
     import numpy as np
     import torch
 
     from uuo_mocap_tpu_torch.body.model import lbs_forward
+
+    def joints(pose, betas, root, trans):
+        with torch.no_grad():
+            return lbs_forward(model, pose, betas, root, trans)["joints"][:, :22]
+
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    j_s = joints(dev(out["pose_body"]), dev(out["betas"]), dev(out["root_orient"]), dev(out["trans"]))
+    j_gt = joints(gt.pose_body, gt.betas, gt.root_orient, gt.trans)
+    return float(torch.linalg.norm(j_s - j_gt, dim=-1).mean()) * 1e3
+
+
+def batch_phase(model):
+    """The main path: ``MultiSequenceSolver.solve_prepared`` on bench.py's
+    batch.  -> launch counts of the solve."""
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.parallel.batch_solver import MultiSequenceSolver
+
+    t0 = time.time()
+    gts, preps = make_batch(model)
+    print(f"batch: {BATCH} sequences made in {time.time() - t0:.2f} s", flush=True)
+    solver = MultiSequenceSolver(model, bench_parallel_config(), device="cuda")
+    per_call = []
+    count_stage_launches(solver.part_fitter, ("fit_batch",), per_call)
+    count_stage_launches(solver.stages, ("chamfer_stage_lanes", "score_chamfer_lanes",
+                                         "nearest_points_lanes_nolabel", "marker_stage_lanes"),
+                         per_call)
+    K.reset_launch_counts()
+    t0 = time.time()
+    out = solver.solve_prepared(preps)
+    torch.cuda.synchronize()
+    solve_s = time.time() - t0
+    counts = K.launch_counts()
+    frames = BATCH * F_FRAMES
+    print(f"batch solve: {solve_s:.2f} s, {frames / solve_s:.3f} frames/s ({frames} frames)",
+          flush=True)
+    print(f"batch stage times (s): {out['stage_times_s']}", flush=True)
+    print(f"batch L-BFGS evaluations: {out['lbfgs_evals']}; per stage: "
+          f"{json.dumps(out['eval_stats'])}", flush=True)
+    print(f"batch best hypotheses: {out['best_hypothesis'].tolist()}, chains: "
+          f"{[[int(c) for c in r['chain']] for r in out['results']]}", flush=True)
+    print(f"batch launches per stage call: {per_call}", flush=True)
+    print(json.dumps({"batch_launches": counts}), flush=True)
+    keys = ("trans", "root_orient", "pose_body", "betas")
+    print(f"batch output digest {digest(*(r[k] for r in out['results'] for k in keys))}",
+          flush=True)
+    require(counts["rank_nearest_cuda"] > 0, "the batch solve never launched the rank kernel")
+    require(counts["min_sqdist_forward_cuda"] > 0,
+            "the batch solve never launched the min_sqdist forward kernel (few queries)")
+    require(counts["min_sqdist_forward_rev_cuda"] > 0,
+            "the batch solve never launched the min_sqdist forward kernel (many queries)")
+
+    F, M = F_FRAMES, N_MARKERS
+    shapes = {"trans": (F, 3), "root_orient": (F, 1, 3, 3), "pose_body": (F, 23, 3, 3),
+              "betas": (F, 10), "markers_labels": (F, M)}
+    errs = []
+    for q, (r, gt) in enumerate(zip(out["results"], gts)):
+        for k, shp in shapes.items():
+            require(r[k].shape == shp, f"sequence {q}: {k} shape {r[k].shape} != {shp}")
+            require(bool(np.isfinite(r[k]).all()), f"sequence {q}: {k} has non-finite values")
+        require("chain" in r and isinstance(r["best_hypothesis"], int),
+                f"sequence {q}: output lacks chain / best_hypothesis")
+        require(bool((r["betas"] == r["betas"][:1]).all()), f"sequence {q}: betas vary by frame")
+        errs.append(mpjpe_mm(model, r, gt))
+    mean_v, med_v, max_v = float(np.mean(errs)), float(np.median(errs)), float(np.max(errs))
+    print(f"batch MPJPE per sequence (mm): {[round(e, 3) for e in errs]}; mean {mean_v:.3f}, "
+          f"median {med_v:.3f}, max {max_v:.3f} (gates {BATCH_GATES_MM[0]} / "
+          f"{BATCH_GATES_MM[1]} mm)", flush=True)
+    require(mean_v <= BATCH_GATES_MM[0] and med_v <= BATCH_GATES_MM[0],
+            f"batch MPJPE mean {mean_v:.2f} / median {med_v:.2f} mm above {BATCH_GATES_MM[0]} mm")
+    require(max_v <= BATCH_GATES_MM[1], f"batch MPJPE max {max_v:.2f} mm above {BATCH_GATES_MM[1]} mm")
+    return counts
+
+
+def path_phase(model, gt, markers, prior):
+    import numpy as np
+    import torch
+
     from uuo_mocap_tpu_torch.data.config import load_config
     from uuo_mocap_tpu_torch.data.img_smpl import ImgSmpl
     from uuo_mocap_tpu_torch.data.markers import ArrayMarkers
@@ -347,14 +534,8 @@ def path_phase(model, gt, markers, prior):
         require(bool(np.isfinite(out[k]).all()), f"{k}: non-finite values")
     require("chain" in out and "mocap_markers" in out, "output dict lacks chain / mocap_markers")
 
-    def joints(pose, betas, root, trans):
-        with torch.no_grad():
-            return lbs_forward(model, pose, betas, root, trans)["joints"][:, :22]
-
     dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
-    j_s = joints(dev(out["pose_body"]), dev(out["betas"]), dev(out["root_orient"]), dev(out["trans"]))
-    j_gt = joints(gt.pose_body, gt.betas, gt.root_orient, gt.trans)
-    mpjpe = float(torch.linalg.norm(j_s - j_gt, dim=-1).mean()) * 1e3
+    mpjpe = mpjpe_mm(model, out, gt)
     print(f"MPJPE vs generating ground truth: {mpjpe:.2f} mm (gate {MPJPE_GATE_MM} mm)", flush=True)
     require(mpjpe <= MPJPE_GATE_MM, f"MPJPE {mpjpe:.2f} mm above the gate")
 
@@ -417,8 +598,8 @@ def main() -> int:
     gt, markers, prior = make_sequence(model)
 
     kres = kernel_phase(model, gt, markers)
-    main_counts, dense_counts, _ = path_phase(model, gt, markers, prior)
-    launches = dict(main_counts)
+    launches = batch_phase(model)  # the main path's counts
+    _, dense_counts, _ = path_phase(model, gt, markers, prior)
     # not on the shipped config's path: counted on the dense stage
     launches["min_sqdist_backward_cuda"] = dense_counts["min_sqdist_backward_cuda"]
     src = "uuo_mocap_tpu_torch/csrc/chamfer.cu"

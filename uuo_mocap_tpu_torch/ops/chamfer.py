@@ -132,24 +132,28 @@ def masked_chamfer_vertex_subset(x: torch.Tensor, y: torch.Tensor, x_mask: torch
 
 def summed_frame_distances(markers: torch.Tensor, vertices: torch.Tensor,
                            frame_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """sum_f w_f ||marker_mf - vertex_vf||: markers [F, M, 3], vertices
-    [..., F, V, 3] -> [..., M, V].  Frames are added one at a time, in
-    order, as the reference's scan does, so only an [..., M, V] accumulator
-    is ever held (no [F, M, V] tensor)."""
-    F, M = markers.shape[0], markers.shape[1]
-    acc = torch.zeros(vertices.shape[:-3] + (M, vertices.shape[-2]),
+    """sum_f w_f ||marker_mf - vertex_vf||: markers [..., F, M, 3], vertices
+    [..., F, V, 3], frame_weights [..., F] (leading lane dims broadcast:
+    one sequence shared by every lane, or one per lane) -> [..., M, V].
+    Frames are added one at a time, in order, as the reference's scan does,
+    so only an [..., M, V] accumulator is ever held (no [F, M, V] tensor)."""
+    F, M = markers.shape[-3], markers.shape[-2]
+    lead = [markers.shape[:-3], vertices.shape[:-3]]
+    if frame_weights is not None:
+        lead.append(frame_weights.shape[:-1])
+    acc = torch.zeros(torch.broadcast_shapes(*lead) + (M, vertices.shape[-2]),
                       dtype=markers.dtype, device=markers.device)
     for f in range(F):
-        d = torch.sqrt(squared_distance_matrix(markers[f], vertices[..., f, :, :]) + 1e-18)
-        acc = acc + (d if frame_weights is None else d * frame_weights[f])
+        d = torch.sqrt(squared_distance_matrix(markers[..., f, :, :], vertices[..., f, :, :]) + 1e-18)
+        acc = acc + (d if frame_weights is None else d * frame_weights[..., f, None, None])
     return acc
 
 
 def mean_nearest_vertex_over_frames(markers: torch.Tensor, vertices: torch.Tensor,
                                     frame_mask: torch.Tensor) -> torch.Tensor:
     """argmin_v of mean_f ||marker_mf - vertex_vf|| over masked frames
-    (``chamfer.py:366-394``): markers [F, M, 3], vertices [..., F, V, 3],
-    frame_mask [F] -> vertex ids [..., M]."""
+    (``chamfer.py:366-394``): markers [..., F, M, 3], vertices [..., F, V, 3],
+    frame_mask [..., F] (leading lane dims broadcast) -> vertex ids [..., M]."""
     w = frame_mask.to(markers.dtype)
     acc = summed_frame_distances(markers, vertices, w)
-    return (acc / torch.clamp_min(w.sum(), 1.0)).argmin(dim=-1)
+    return (acc / torch.clamp_min(w.sum(-1), 1.0)[..., None, None]).argmin(dim=-1)

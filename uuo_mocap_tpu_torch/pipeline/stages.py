@@ -2,11 +2,15 @@
 parts (counterpart of ``uuo_mocap_tpu/pipeline/stages.py``).
 
 Every closure is written for a lane batch: parameters carry a leading lane
-axis (yaw hypotheses here), per-sequence data is shared across lanes, and a
-closure returns one loss per lane.  Each chamfer closure ranks the nearest
-vertex of every (frame, marker) on a no-grad dense forward — the Hopper rank
-kernel on CUDA — and takes the loss and its gradient from the gathered
-forward at the ranked vertices (``stages.py:191-221``).
+axis, and a closure returns one loss per lane.  Per-sequence data is shared
+across the lanes (the single-sequence solve: lanes are yaw hypotheses) or
+carries the lane axis itself (the ``*_lanes`` entry points of the
+multi-sequence solve: lanes are sequence x hypothesis); the closures read it
+through the merged view ``_data``, so both forms run the same code.  Each
+chamfer closure ranks the nearest vertex of every (frame, marker) on a
+no-grad dense forward — the Hopper rank kernel on CUDA — and takes the loss
+and its gradient from the gathered forward at the ranked vertices
+(``stages.py:191-221``).
 """
 from __future__ import annotations
 
@@ -178,10 +182,7 @@ class SolveStages:
         seeds.  Returns (SmplParams with a leading A axis, LbfgsResult)."""
         A, F = root0_batch.shape[0], root0_batch.shape[1]
         dev, dt = markers.device, markers.dtype
-        if self.config["stages"]["chamfer"].get("yaw_lock", True):
-            z0 = torch.zeros((F, 1, 1), dtype=dt, device=dev)
-        else:
-            z0 = rot.matrix_to_rotation_6d(torch.eye(3, dtype=dt, device=dev).expand(F, 1, 3, 3))
+        z0 = self._z0((), F, dt, dev)
 
         def tile(x):
             return x[None].expand((A,) + x.shape).contiguous()
@@ -194,15 +195,24 @@ class SolveStages:
                   "frame_valid": torch.ones(F, dtype=dt, device=dev) if frame_valid is None
                   else frame_valid}
         p_opt, res = self._chamfer_solver.run(params0, lane, shared)
-        return SmplParams(rot.rotation_6d_to_matrix(p_opt["pose6d"]), p_opt["betas"],
-                          self._chamfer_apply(p_opt["z"], root0_batch), p_opt["trans"]), res
+        return self._post_chamfer(p_opt, root0_batch), res
+
+    def _z0(self, batch, F, dt, dev):
+        """The chamfer stage's initial root offset: zero yaw [*batch, F, 1, 1]
+        (``yaw_lock``) or the identity's 6d form [*batch, F, 1, 6]."""
+        if self.config["stages"]["chamfer"].get("yaw_lock", True):
+            return torch.zeros(batch + (F, 1, 1), dtype=dt, device=dev)
+        eye = torch.eye(3, dtype=dt, device=dev).expand(batch + (F, 1, 3, 3))
+        return rot.matrix_to_rotation_6d(eye)
 
     # -------------------------------------------------------- nearest points
     def nearest_points_batched(self, markers, params: SmplParams, img_mask,
                                marker_labels_mode=None) -> MarkerAttachment:
         """Marker -> surface correspondence for every lane of ``params``
         (``stages.py:514-535``, the shipped ``use_mean`` path): the argmin
-        vertex of the frame-averaged [M, V] distance over img_mask frames."""
+        vertex of the frame-averaged [M, V] distance over img_mask frames.
+        markers [F, M, 3] and img_mask [F] are shared by the lanes, or
+        carry the lane axis ([Ln, F, M, 3], [Ln, F])."""
         loc = self.config["stages"]["compute_locations"]
         if not loc["use_mean"] or loc["use_barycentric"]:
             raise NotImplementedError(
@@ -262,10 +272,7 @@ class SolveStages:
         a leading A axis."""
         if self.config["stages"]["marker"].get("use_sdf"):
             raise NotImplementedError("marker.use_sdf is not ported yet (a later slice)")
-        params0 = {"pose6d": rot.matrix_to_rotation_6d(params_batch.pose_body),
-                   "betas": params_batch.betas,
-                   "root6d": rot.matrix_to_rotation_6d(params_batch.root_orient),
-                   "trans": params_batch.trans}
+        params0 = self._to6d(params_batch)
         lane = {"att_ids": attachments.vertex_ids, "att_w": attachments.weights}
         F = markers.shape[0]
         shared = {"markers": markers, "weights": weights, "o_pose_body": o_pose_body,
@@ -273,17 +280,86 @@ class SolveStages:
                   "frame_valid": torch.ones(F, dtype=markers.dtype, device=markers.device)
                   if frame_valid is None else frame_valid}
         p_opt, res = self._marker_solver.run(params0, lane, shared)
-        return SmplParams(rot.rotation_6d_to_matrix(p_opt["pose6d"]), p_opt["betas"],
-                          rot.rotation_6d_to_matrix(p_opt["root6d"]), p_opt["trans"]), res
+        return self._post_marker(p_opt), res
+
+    # ------------------------------------------------- multi-sequence lanes
+    # The same solvers serve the multi-sequence solve (``stages.py:723-865``):
+    # every per-sequence tensor moves from ``shared`` into ``lane``, so
+    # sequences x hypotheses become lanes of the same closures.
+
+    def root_stage_lanes(self, *args, **kw):
+        raise NotImplementedError("the root stage is not ported yet (a later slice)")
+
+    def marker_stage_sdf_lanes(self, *args, **kw):
+        raise NotImplementedError("marker.use_sdf is not ported yet (a later slice)")
+
+    @property
+    def _chamfer_solver_frozen(self):
+        raise NotImplementedError(
+            "the rank-per-iteration chamfer solver (hypothesis_prune.rank_phase1) is not "
+            "ported yet (a later slice)")
+
+    def chamfer_stage_lanes(self, markers_l, weights_l, o_pose_l, o_betas_l, pose0_l, betas0_l,
+                            root0_l, trans0_l, labels_l, frame_valid_l, solver=None):
+        """Per-lane chamfer stage: every argument carries a leading lane axis
+        (lane = sequence x yaw hypothesis).  ``solver`` overrides the stage
+        solver.  Returns (SmplParams [Ln, ...], LbfgsResult)."""
+        Ln, F = root0_l.shape[0], root0_l.shape[1]
+        solver = self._chamfer_solver if solver is None else solver
+        params0 = {"trans": trans0_l, "z": self._z0((Ln,), F, trans0_l.dtype, trans0_l.device),
+                   "betas": betas0_l, "pose6d": rot.matrix_to_rotation_6d(pose0_l)}
+        lane = {"root_orient0": root0_l, "markers": markers_l, "weights": weights_l,
+                "o_pose_body": o_pose_l, "o_betas": o_betas_l, "marker_labels_mode": labels_l,
+                "frame_valid": frame_valid_l}
+        p_opt, res = solver.run(params0, lane, {})
+        return self._post_chamfer(p_opt, root0_l), res
+
+    def marker_stage_lanes(self, markers_l, weights_l, o_pose_l, o_betas_l, params_l: SmplParams,
+                           attachments_l: MarkerAttachment, frame_valid_l):
+        """Per-lane marker IK (multi-sequence form of ``marker_stage_batched``)."""
+        if self.config["stages"]["marker"].get("use_sdf"):
+            return self.marker_stage_sdf_lanes()
+        lane = {"att_ids": attachments_l.vertex_ids, "att_w": attachments_l.weights,
+                "markers": markers_l, "weights": weights_l, "o_pose_body": o_pose_l,
+                "o_betas": o_betas_l, "frame_valid": frame_valid_l}
+        p_opt, res = self._marker_solver.run(self._to6d(params_l), lane, {})
+        return self._post_marker(p_opt), res
+
+    def nearest_points_lanes(self, markers_l, params_l: SmplParams, img_mask_l,
+                             labels_l=None) -> MarkerAttachment:
+        """Per-lane correspondence: markers [Ln, F, M, 3], img_mask [Ln, F]."""
+        return self.nearest_points_batched(markers_l, params_l, img_mask_l, labels_l)
+
+    def nearest_points_lanes_nolabel(self, markers_l, params_l: SmplParams,
+                                     img_mask_l) -> MarkerAttachment:
+        return self.nearest_points_batched(markers_l, params_l, img_mask_l)
+
+    # --------------------------------------------- parameter conversions
+    @staticmethod
+    def _to6d(params: SmplParams) -> Dict[str, torch.Tensor]:
+        return {"pose6d": rot.matrix_to_rotation_6d(params.pose_body), "betas": params.betas,
+                "root6d": rot.matrix_to_rotation_6d(params.root_orient), "trans": params.trans}
+
+    @staticmethod
+    def _post_marker(p: Dict[str, torch.Tensor]) -> SmplParams:
+        return SmplParams(rot.rotation_6d_to_matrix(p["pose6d"]), p["betas"],
+                          rot.rotation_6d_to_matrix(p["root6d"]), p["trans"])
+
+    def _post_chamfer(self, p: Dict[str, torch.Tensor], root0: torch.Tensor) -> SmplParams:
+        return SmplParams(rot.rotation_6d_to_matrix(p["pose6d"]), p["betas"],
+                          self._chamfer_apply(p["z"], root0), p["trans"])
 
     # ------------------------------------------------------------- selection
     def score_chamfer_batched(self, markers, marker_weights, params: SmplParams) -> torch.Tensor:
         """Single-directional weighted chamfer per lane, which picks the best
-        yaw hypothesis (the forward kernel on CUDA) -> [A]."""
+        yaw hypothesis (the forward kernel on CUDA) -> [A].  markers and
+        weights are shared ([F, M, 3], [F, M]) or per lane ([Ln, F, M, 3])."""
         with torch.no_grad():
             out = _forward(self.model, params)
             return masked_chamfer(markers, out["vertices"], marker_weights,
                                   single_directional=True, batch_dims=1)
+
+    score_chamfer_lanes = score_chamfer_batched
 
     def marker_labels_from_attachment(self, attachment: MarkerAttachment,
                                       num_frames: int) -> torch.Tensor:

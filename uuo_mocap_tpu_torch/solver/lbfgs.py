@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 
@@ -312,6 +313,14 @@ def lbfgs_run(fun, x0: torch.Tensor, opts: LbfgsOptions, iter_cap: int | None = 
         steps += 1
 
 
+def _gather(st: LbfgsState, idx: torch.Tensor) -> LbfgsState:
+    return LbfgsState(*(t[idx] for t in st))
+
+
+def _cat(states) -> LbfgsState:
+    return LbfgsState(*(torch.cat(ts) for ts in zip(*states)))
+
+
 class BatchedLbfgs:
     """``fun(params, lane, shared) -> [L]`` minimized independently for every
     lane (counterpart of ``BatchedLbfgs``, ``lbfgs.py:475-851``).
@@ -320,14 +329,49 @@ class BatchedLbfgs:
     tensors carry the lane axis too, ``shared`` ones do not.  The parameters
     are flattened per lane in sorted key order (the reference's
     ``ravel_pytree`` order).  ``iter_cap`` caps each lane's iterations below
-    ``opts.max_iter``; ``last_run_stats`` reports the work of the last run.
+    ``opts.max_iter``, and ``warmup_iter_cap`` caps them again whatever the
+    caller set (a warm-up that runs every program once).
+
+    Streaming (``max_width``): the closure runs a working set of W lanes,
+    and every lane lives in a pool.  The pool is initialized W lanes at a
+    time; then a lane that converges or reaches its cap retires to the pool
+    and a queued lane takes its slot, and once the queue is empty,
+    duplicates of live lanes pad the working set.  ``pad_width`` rounds a
+    batch smaller than ``max_width`` up to the next power of two (the
+    reference's bucket rule, ``lbfgs.py:669-674``).  Unlike the reference,
+    which runs segments of iterations per device program and checks between
+    them, the port steps the working set one iteration at a time and checks
+    on the host after each, so ``segments`` and ``abort_after_segments``
+    have no counterpart.
+
+    ``last_run_stats`` after a run, under the reference's meanings:
+    ``width`` (W), ``lanes`` (L), ``refills`` (working-set changes),
+    ``lane_evals`` (the evaluations the lanes used, summed), ``device_evals``
+    (the evaluations the working set ran: W per initial evaluation and, per
+    iteration, W times the most any of its lanes counted) and
+    ``ride_along_evals`` (their difference: finished lanes and duplicates
+    carried in lockstep).  Evaluations are counted as the reference counts
+    them, 1 + the line search's evaluations per iteration, so the two
+    packages' numbers compare.
     """
 
-    def __init__(self, fun, opts: LbfgsOptions):
+    def __init__(self, fun, opts: LbfgsOptions, max_width: int | None = None,
+                 pad_width: bool = False):
         self.fun = fun
         self.opts = opts
+        self.max_width = max_width
+        self.pad_width = pad_width
         self.iter_cap = None
+        self.warmup_iter_cap = None
         self.last_run_stats: Dict[str, int] = {}
+
+    def width(self, L: int) -> int:
+        """The working-set width for L lanes (``lbfgs.py:669-674``)."""
+        if self.max_width is not None and L > self.max_width:
+            return int(self.max_width)
+        if self.pad_width and self.max_width is not None and L < self.max_width:
+            return min(1 << max(L - 1, 1).bit_length(), int(self.max_width)) if L > 1 else 1
+        return L
 
     def run(self, params0: Dict[str, torch.Tensor], lane: Dict[str, torch.Tensor],
             shared: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], LbfgsResult]:
@@ -337,22 +381,87 @@ class BatchedLbfgs:
         sizes = [int(torch.Size(s).numel()) for s in shapes]
 
         def unflatten(x):
-            return {k: p.reshape((L,) + tuple(s))
+            return {k: p.reshape((x.shape[0],) + tuple(s))
                     for k, p, s in zip(keys, torch.split(x, sizes, dim=1), shapes)}
 
         calls = [0]
 
-        def fun(x):
-            calls[0] += 1
-            return self.fun(unflatten(x), lane, shared)
+        def fun_on(rows):
+            """The closure on the lanes ``rows`` (None: all lanes in order)."""
+            lane_w = lane if rows is None else {k: v[rows] for k, v in lane.items()}
+
+            def fun(x):
+                calls[0] += 1
+                return self.fun(unflatten(x), lane_w, shared)
+
+            return fun
 
         x0 = torch.cat([params0[k].reshape(L, -1) for k in keys], dim=1).float()
-        st, steps = lbfgs_run(fun, x0, self.opts, self.iter_cap)
-        # lane_evals: evaluations the lanes used; device_evals: lane
-        # evaluations run, since every closure call evaluates all L lanes
-        self.last_run_stats = {"lanes": L, "iterations": steps,
-                               "lane_evals": int(st.n_evals.sum()),
-                               "device_evals": L * calls[0]}
+        cap = self.opts.max_iter if self.iter_cap is None else min(self.opts.max_iter,
+                                                                    int(self.iter_cap))
+        if self.warmup_iter_cap is not None:
+            cap = min(cap, int(self.warmup_iter_cap))
+        W = self.width(L)
+        refills = 0
+        if W == L:
+            st, steps = lbfgs_run(fun_on(None), x0, self.opts, cap)
+        else:
+            st, refills, steps = self._stream(fun_on, x0, L, W, cap)
+        # one closure call per line-search evaluation and per pool chunk's
+        # initial evaluation, plus the reference's extra count per iteration
+        device_evals = W * (calls[0] + steps)
+        lane_evals = int(st.n_evals.sum())
+        self.last_run_stats = {"width": W, "lanes": L, "refills": refills,
+                               "lane_evals": lane_evals, "device_evals": device_evals,
+                               "ride_along_evals": max(device_evals - lane_evals, 0)}
         result = LbfgsResult(x=st.x, f=st.f, grad_norm=st.g.abs().amax(-1),
                              num_iters=st.n_iter, num_evals=st.n_evals)
         return {k: v.detach() for k, v in unflatten(st.x).items()}, result
+
+    def _stream(self, fun_on, x0: torch.Tensor, L: int, W: int, cap: int
+                ) -> Tuple[LbfgsState, int, int]:
+        """Refill-on-retire over a working set of W lanes (``lbfgs.py:704-829``).
+        Returns the pool's final state, the number of refills and the number
+        of working-set iterations."""
+        dev = x0.device
+        chunks = []
+        for s in range(0, L, W):  # row j of chunk s is lane min(s + j, L - 1)
+            rows = torch.as_tensor(np.clip(np.arange(s, s + W), 0, L - 1), device=dev)
+            chunks.append(lbfgs_init(fun_on(rows), x0[rows], self.opts))
+        pool = LbfgsState(*(t[:L] for t in _cat(chunks)))
+        finished = np.zeros(L, bool)
+
+        def pick_active():
+            """W working lanes: live lanes first, padded with repeats of them."""
+            live = np.where(~finished)[0]
+            if len(live) >= W:
+                return live[:W]
+            return np.concatenate([live, live[np.arange(W - len(live)) % len(live)]])
+
+        def flush(pool, active, ws):
+            # write each lane back once: its first row (duplicates carry its state)
+            lanes, first = np.unique(active, return_index=True)
+            ids = torch.as_tensor(lanes, device=dev)
+            pos = torch.as_tensor(first, device=dev)
+            return LbfgsState(*(p.index_copy(0, ids, w[pos]) for p, w in zip(pool, ws)))
+
+        active = pick_active()
+        rows = torch.as_tensor(active, device=dev)
+        ws, fun = _gather(pool, rows), fun_on(rows)
+        refills = steps = 0
+        while True:
+            alive = (~ws.done) & (ws.n_iter < cap)
+            finished[active[~alive.cpu().numpy()]] = True
+            if finished.all():
+                return flush(pool, active, ws), refills, steps
+            new_active = pick_active()
+            if not np.array_equal(new_active, active):
+                pool = flush(pool, active, ws)
+                active = new_active
+                rows = torch.as_tensor(active, device=dev)
+                ws, fun = _gather(pool, rows), fun_on(rows)
+                refills += 1
+                continue
+            new = lbfgs_step(fun, ws, self.opts)
+            ws = LbfgsState(*(_sel(alive, a, b) for a, b in zip(new, ws)))
+            steps += 1

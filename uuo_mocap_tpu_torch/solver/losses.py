@@ -3,8 +3,10 @@
 
 Every term is per lane: its first argument carries a leading lane axis
 [L, ...], the other arguments are either lane-batched too or shared
-(broadcast over lanes), and the result is [L].  The reference computes the
-same scalars one lane at a time under ``vmap``.
+(broadcast over lanes), and the result is [L].  Frame masks follow the same
+rule: ``frame_valid`` is [F] (one sequence shared by every lane) or [L, F]
+(one sequence per lane, as in the multi-sequence solve).  The reference
+computes the same scalars one lane at a time under ``vmap``.
 """
 from __future__ import annotations
 
@@ -32,16 +34,16 @@ def marker_loss(markers, virtual_markers, marker_weights, marker_distance=MARKER
 
 
 def _vel_mask(frame_valid: torch.Tensor) -> torch.Tensor:
-    """[F] validity -> [F-1] velocity-pair validity (both frames real)."""
-    return frame_valid[1:] * frame_valid[:-1]
+    """[(L,) F] validity -> [(L,) F-1] velocity-pair validity (both frames real)."""
+    return frame_valid[..., 1:] * frame_valid[..., :-1]
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-lane mean of ``values`` [L, F', ...] over entries whose frame
-    mask [F'] is > 0."""
-    m = mask.reshape(mask.shape + (1,) * (values.dim() - 2)).expand(values.shape[1:])
+    mask, [F'] or [L, F'], is > 0."""
+    m = mask.reshape(mask.shape + (1,) * (values.dim() - 2)).expand(values.shape)
     num = (values * m).flatten(1).sum(-1)
-    return num / torch.clamp_min(m.sum(), 1e-12)
+    return num / torch.clamp_min(m.flatten(1).sum(-1), 1e-12)
 
 
 def trans_vel_loss(trans, markers, frame_valid: Optional[torch.Tensor] = None):
@@ -71,5 +73,5 @@ def temporal_loss(pose_body, frame_valid: Optional[torch.Tensor] = None):
     vel = pose_body[:, 2:] - 2 * pose_body[:, 1:-1] - pose_body[:, :-2]
     if frame_valid is None:
         return _per_lane_mean(vel ** 2)
-    triple = frame_valid[2:] * frame_valid[1:-1] * frame_valid[:-2]
+    triple = frame_valid[..., 2:] * frame_valid[..., 1:-1] * frame_valid[..., :-2]
     return _masked_mean(vel ** 2, triple)
