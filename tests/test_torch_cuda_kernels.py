@@ -186,3 +186,26 @@ def test_min_sqdist_gradient_on_cuda_matches_cpu(dev):
         grads.append([t.grad.cpu() for t in (xt, yt, bt)])
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, atol=1e-5, rtol=0)
+
+
+def test_marker_to_surface_distance_on_cuda_matches_cpu(dev):
+    """The m2s metric (plain PyTorch, frame chunks of 32) on the card against
+    the CPU on the same body and markers: within 1e-6 m, per point and in
+    the mean (elementwise float32 in both; no TF32 path)."""
+    from uuo_mocap_tpu_torch.body.model import lbs_forward
+    from uuo_mocap_tpu_torch.body.synthetic import synthetic_body_model
+    from uuo_mocap_tpu_torch.data.synthetic import generate_markers, random_pose_sequence
+    from uuo_mocap_tpu_torch.ops.point_mesh import marker_to_surface_distance, point_mesh_distance
+
+    model = synthetic_body_model(device="cpu")
+    gt = random_pose_sequence(40, seed=3, device="cpu")
+    markers = generate_markers(model, gt, num_markers=41, seed=4, position_noise=0.01).points
+    with torch.no_grad():
+        verts = lbs_forward(model, gt.pose_body, gt.betas, gt.root_orient, gt.trans)["vertices"]
+    ref = marker_to_surface_distance(markers, verts, model.faces)
+    out = marker_to_surface_distance(markers.to(dev), verts.to(dev), model.faces)
+    assert out.device.type == "cuda"
+    assert abs(float(out) - float(ref)) <= 1e-6
+    d_ref = point_mesh_distance(markers[:5], verts[:5], model.faces)["distance"]
+    d_out = point_mesh_distance(markers[:5].to(dev), verts[:5].to(dev), model.faces)["distance"]
+    torch.testing.assert_close(d_out.cpu(), d_ref, atol=1e-6, rtol=0)

@@ -1,12 +1,35 @@
-"""Kinematic-subtree enumeration (a copy of the host-side algorithms in
-``uuo_mocap_tpu/body/joints.py``; the port keeps its own copy rather than
-importing the JAX package)."""
+"""SMPL joint tables and kinematic-subtree enumeration (a copy of the
+host-side tables and algorithms in ``uuo_mocap_tpu/body/joints.py``; the
+port keeps its own copy rather than importing the JAX package)."""
 from __future__ import annotations
 
 import itertools
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+SMPL_JOINT_NAMES: List[str] = [
+    "pelvis", "left_hip", "right_hip", "spine1", "left_knee", "right_knee",
+    "spine2", "left_ankle", "right_ankle", "spine3", "left_foot", "right_foot",
+    "neck", "left_collar", "right_collar", "head", "left_shoulder",
+    "right_shoulder", "left_elbow", "right_elbow", "left_wrist", "right_wrist",
+    "left_hand", "right_hand",
+]
+
+
+def get_joint_id(name: str) -> int:
+    return SMPL_JOINT_NAMES.index(name)
+
+
+SMPL_LIMBS: Dict[str, List[int]] = {
+    "head": [get_joint_id("head")],
+    "left_arm": [get_joint_id(n) for n in ("left_shoulder", "left_elbow", "left_wrist", "left_hand")],
+    "left_leg": [get_joint_id(n) for n in ("left_hip", "left_knee", "left_foot", "left_ankle")],
+    "left_shoulder": [get_joint_id(n) for n in ("left_collar", "left_shoulder", "left_elbow")],
+    "right_arm": [get_joint_id(n) for n in ("right_shoulder", "right_elbow", "right_wrist", "right_hand")],
+    "right_leg": [get_joint_id(n) for n in ("right_hip", "right_knee", "right_foot", "right_ankle")],
+    "right_shoulder": [get_joint_id(n) for n in ("right_collar", "right_shoulder", "right_elbow")],
+}
 
 
 def get_sub_hierarchies(parents: Sequence[int], num_bones: int) -> List[List[int]]:

@@ -6,11 +6,15 @@ tensors both forwards reuse (flattened blend bases, the regressor
 pre-contracted with the template and the shape basis).  ``lbs_forward`` is
 the dense forward; ``lbs_forward_at`` evaluates the same pipeline only at
 selected vertices, so its backward is O(M) instead of O(V).  All matmuls
-run in full FP32 (``device.py`` switches TF32 off).
+run in full FP32 (``device.py`` switches TF32 off).  ``load_body_model``
+reads an SMPL asset (a chumpy-encoded pkl, decoded without chumpy, or an
+npz with the same field names).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import os
+import pickle
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +57,8 @@ class BodyModel:
     def __init__(self, v_template: torch.Tensor, shapedirs: torch.Tensor,
                  posedirs: torch.Tensor, j_regressor: torch.Tensor,
                  lbs_weights: torch.Tensor, faces: np.ndarray,
-                 parents: np.ndarray = PARENTS):
+                 parents: np.ndarray = PARENTS, gender: str = "neutral"):
+        self.gender = gender
         self.v_template = v_template
         self.shapedirs = shapedirs
         self.posedirs = posedirs
@@ -81,6 +86,69 @@ class BodyModel:
     def vertex_part_labels(self) -> torch.Tensor:
         """argmax LBS weight per vertex -> joint id [V]."""
         return self.lbs_weights.argmax(dim=-1)
+
+
+class _ChumpyUnpickler(pickle.Unpickler):
+    """Decodes chumpy-pickled SMPL assets without chumpy: chumpy arrays
+    subclass ndarray, so a plain ndarray subclass stands in for them and
+    ``np.asarray`` recovers the data (``body/model.py:134-151``)."""
+
+    def find_class(self, module: str, name: str):
+        if module.startswith("chumpy"):
+            class _Ch(np.ndarray):
+                pass
+
+            return _Ch
+        if module in ("scipy.sparse.csc", "scipy.sparse._csc"):
+            import scipy.sparse
+
+            return scipy.sparse.csc_matrix
+        return super().find_class(module, name)
+
+
+def _to_dense(x: Any) -> np.ndarray:
+    return np.asarray(x.toarray()) if hasattr(x, "toarray") else np.asarray(x)
+
+
+def load_body_model(path: str, gender: str = "neutral", device=None) -> BodyModel:
+    """A body model from an SMPL pkl (as shipped by smpl.is.tue.mpg.de) or an
+    npz with the same field names (``body/model.py:229-282``), on ``device``
+    (default: the card).  ``path`` may also be a directory holding
+    ``smpl/SMPL_<GENDER>.pkl`` or ``SMPL_<GENDER>.pkl``.
+
+    The asset stores posedirs [V, 3, 207]; the model keeps [207, V*3], the
+    row-major flattening ``lbs_forward`` contracts with (vertex v, axis d at
+    column 3 v + d)."""
+    from uuo_mocap_tpu_torch.convert import body_model_from_numpy
+
+    if os.path.isdir(path):
+        cand = os.path.join(path, "smpl", f"SMPL_{gender.upper()}.pkl")
+        if not os.path.exists(cand):
+            cand = os.path.join(path, f"SMPL_{gender.upper()}.pkl")
+        path = cand
+    if path.endswith(".npz"):
+        data: Dict[str, Any] = dict(np.load(path, allow_pickle=False))
+    else:
+        with open(path, "rb") as f:
+            data = _ChumpyUnpickler(f, encoding="latin1").load()
+
+    posedirs = _to_dense(data["posedirs"]).astype(np.float32)  # [V, 3, 207]
+    parents = data.get("kintree_table")
+    if parents is not None:
+        parents = np.asarray(parents)
+        if parents.ndim == 2:  # kintree_table [2, J]
+            parents = parents[0].astype(np.int64)
+            parents[0] = -1
+    arrays = {
+        "v_template": _to_dense(data["v_template"]).astype(np.float32),
+        "shapedirs": _to_dense(data["shapedirs"]).astype(np.float32)[:, :, :NUM_BETAS],
+        "posedirs": posedirs.reshape(-1, posedirs.shape[-1]).T,
+        "j_regressor": _to_dense(data["J_regressor"]).astype(np.float32),
+        "lbs_weights": _to_dense(data["weights"]).astype(np.float32),
+        "faces": _to_dense(data.get("f", data.get("faces"))).astype(np.int32),
+        "parents": PARENTS if parents is None else parents.astype(np.int32),
+    }
+    return body_model_from_numpy(arrays, device=device, gender=gender)
 
 
 def _compose_kinematic_chain(rot_mats: torch.Tensor, joints_rest: torch.Tensor,

@@ -191,8 +191,9 @@ def _build_arrays(gender: str = "neutral"):
     }
 
 
-def synthetic_body_model(device=None) -> BodyModel:
-    """The deterministic synthetic model on ``device`` (default: the card)."""
+def synthetic_body_model(device=None, gender: str = "neutral") -> BodyModel:
+    """The deterministic synthetic model on ``device`` (default: the card);
+    the male and female models are the neutral one scaled by 1.05 and 0.94."""
     from uuo_mocap_tpu_torch.convert import body_model_from_numpy
 
-    return body_model_from_numpy(_build_arrays("neutral"), device=device)
+    return body_model_from_numpy(_build_arrays(gender), device=device, gender=gender)

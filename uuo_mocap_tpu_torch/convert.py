@@ -18,7 +18,8 @@ from uuo_mocap_tpu_torch.pipeline.stages import SmplParams
 BODY_MODEL_ARRAYS = ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights")
 
 
-def body_model_from_numpy(arrays: Mapping[str, Any], device=None) -> BodyModel:
+def body_model_from_numpy(arrays: Mapping[str, Any], device=None,
+                          gender: str = "neutral") -> BodyModel:
     """``arrays``: v_template [V, 3], shapedirs [V, 3, 10], posedirs
     [207, V*3], j_regressor [24, V], lbs_weights [V, 24], faces [T, 3] and
     optionally parents [24] -> the port's ``BodyModel`` on ``device``."""
@@ -27,7 +28,8 @@ def body_model_from_numpy(arrays: Mapping[str, Any], device=None) -> BodyModel:
                for k in BODY_MODEL_ARRAYS}
     parents = arrays.get("parents")
     return BodyModel(**tensors, faces=np.asarray(arrays["faces"], np.int32),
-                     parents=PARENTS if parents is None else np.asarray(parents, np.int32))
+                     parents=PARENTS if parents is None else np.asarray(parents, np.int32),
+                     gender=gender)
 
 
 def body_model_arrays(model: Any) -> Dict[str, np.ndarray]:

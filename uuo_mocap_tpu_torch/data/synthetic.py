@@ -12,6 +12,7 @@ import torch
 from uuo_mocap_tpu_torch.body.model import BodyModel, lbs_forward
 from uuo_mocap_tpu_torch.device import resolve_device
 from uuo_mocap_tpu_torch.ops import rotations as rot
+from uuo_mocap_tpu_torch.ops.geometry import vertex_normals
 from uuo_mocap_tpu_torch.pipeline.stages import SmplParams
 from uuo_mocap_tpu_torch.settings import MARKER_DISTANCE
 
@@ -58,36 +59,6 @@ class SyntheticMarkers(NamedTuple):
     gt: SmplParams
 
 
-def _vertex_faces(faces: np.ndarray, num_vertices: int) -> np.ndarray:
-    """[V, K] ids of the faces around each vertex in face order, padded with
-    ``len(faces)`` (the id of an appended zero normal)."""
-    v = faces.reshape(-1)
-    f = np.repeat(np.arange(faces.shape[0]), faces.shape[1])
-    order = np.argsort(v, kind="stable")
-    v, f = v[order], f[order]
-    counts = np.bincount(v, minlength=num_vertices)
-    slot = np.arange(v.size) - (np.cumsum(counts) - counts)[v]
-    table = np.full((num_vertices, int(counts.max())), faces.shape[0], np.int64)
-    table[v, slot] = f
-    return table
-
-
-def _vertex_normals(verts: torch.Tensor, faces: np.ndarray) -> torch.Tensor:
-    """Area-weighted unit vertex normals of [F, V, 3].  Each vertex sums its
-    faces' normals in face order, the same order on every device and run
-    (a CUDA ``index_add_`` sums in whatever order its atomics land, so the
-    markers would change in their last bits from run to run)."""
-    fi = torch.as_tensor(faces, device=verts.device)
-    t0, t1, t2 = (verts[:, fi[:, k]] for k in range(3))
-    face_n = torch.linalg.cross(t1 - t0, t2 - t0, dim=-1)
-    face_n = torch.cat([face_n, face_n.new_zeros(face_n.shape[0], 1, 3)], dim=1)
-    table = torch.as_tensor(_vertex_faces(faces, verts.shape[1]), device=verts.device)
-    vn = face_n[:, table[:, 0]]
-    for k in range(1, table.shape[1]):
-        vn = vn + face_n[:, table[:, k]]
-    return vn / torch.clamp_min(torch.linalg.norm(vn, dim=-1, keepdim=True), 1e-12)
-
-
 def generate_markers(model: BodyModel, params: SmplParams, num_markers: int = 41, seed: int = 0,
                      freq: float = 30.0, surface_offset: float = MARKER_DISTANCE,
                      occlusion_rate: float = 0.0, position_noise: float = 0.0,
@@ -106,7 +77,7 @@ def generate_markers(model: BodyModel, params: SmplParams, num_markers: int = 41
         verts = lbs_forward(model, params.pose_body, params.betas, params.root_orient,
                             params.trans)["vertices"]
         vid_t = torch.as_tensor(vid, device=dev)
-        points = verts[:, vid_t] + _vertex_normals(verts, model.faces.astype(np.int64))[:, vid_t] \
+        points = verts[:, vid_t] + vertex_normals(verts, model.faces)[:, vid_t] \
             * surface_offset
     if position_noise > 0:
         points = points + torch.as_tensor(

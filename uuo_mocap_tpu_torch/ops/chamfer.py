@@ -127,6 +127,11 @@ def masked_chamfer_vertex_subset(x: torch.Tensor, y: torch.Tensor, x_mask: torch
         return loss
     x_bias = (1.0 - (xm > 0).to(x.dtype)) * BIG
     d2_y = min_sqdist(y, x, x_bias)
+    # A frame with no valid marker (a frame-bucket padding frame) has no
+    # reverse term.  The reference keeps it: its vertices' nearest "marker"
+    # is the 1e10 bias, and a 1e10-scale sum leaves no float32 bits for the
+    # real frames, so its part scores become rounding noise (ROADMAP C.4).
+    ym = ym * (xm.amax(dim=-1, keepdim=True) > 0).to(x.dtype)
     return loss + _reduce(d2_y * ym, batch_dims) / torch.clamp_min(_reduce(ym, batch_dims), 1e-12)
 
 

@@ -1,6 +1,8 @@
-"""AABB and marker-mask helpers (counterpart of ``uuo_mocap_tpu/ops/geometry.py``)."""
+"""AABB, marker-mask and vertex-normal helpers (counterpart of
+``uuo_mocap_tpu/ops/geometry.py``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -37,3 +39,35 @@ def upsample_frames(x: torch.Tensor, F_full: int, stride: int) -> torch.Tensor:
     i1 = torch.clamp(i0 + 1, 0, Fs - 1)
     w = (pos - i0.to(torch.float32)).reshape((1, F_full) + (1,) * (x.dim() - 2)).to(x.dtype)
     return x[:, i0] * (1.0 - w) + x[:, i1] * w
+
+
+def _vertex_faces(faces: np.ndarray, num_vertices: int) -> np.ndarray:
+    """[V, K] ids of the faces around each vertex in face order, padded with
+    ``len(faces)`` (the id of an appended zero normal)."""
+    v = faces.reshape(-1)
+    f = np.repeat(np.arange(faces.shape[0]), faces.shape[1])
+    order = np.argsort(v, kind="stable")
+    v, f = v[order], f[order]
+    counts = np.bincount(v, minlength=num_vertices)
+    slot = np.arange(v.size) - (np.cumsum(counts) - counts)[v]
+    table = np.full((num_vertices, int(counts.max())), faces.shape[0], np.int64)
+    table[v, slot] = f
+    return table
+
+
+def vertex_normals(verts: torch.Tensor, faces) -> torch.Tensor:
+    """Area-weighted unit vertex normals of [..., V, 3] (``geometry.py:58``).
+    Each vertex sums its faces' normals in face order, the same order on
+    every device and run (a CUDA ``index_add_`` sums in whatever order its
+    atomics land, so the markers would change in their last bits from run
+    to run)."""
+    faces = np.asarray(faces, np.int64)
+    fi = torch.as_tensor(faces, device=verts.device)
+    t0, t1, t2 = (verts[..., fi[:, k], :] for k in range(3))
+    face_n = torch.linalg.cross(t1 - t0, t2 - t0, dim=-1)
+    face_n = torch.cat([face_n, face_n.new_zeros(face_n.shape[:-2] + (1, 3))], dim=-2)
+    table = torch.as_tensor(_vertex_faces(faces, verts.shape[-2]), device=verts.device)
+    vn = face_n[..., table[:, 0], :]
+    for k in range(1, table.shape[1]):
+        vn = vn + face_n[..., table[:, k], :]
+    return vn / torch.clamp_min(torch.linalg.norm(vn, dim=-1, keepdim=True), 1e-12)

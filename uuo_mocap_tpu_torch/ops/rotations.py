@@ -74,6 +74,36 @@ def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def axis_angle_to_quaternion(axis_angle: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 4] (w, x, y, z), with the small-angle guard of
+    ``axis_angle_to_matrix``."""
+    theta2 = (axis_angle * axis_angle).sum(-1, keepdim=True)
+    small = theta2 < 1e-8
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    half = theta * 0.5
+    w = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
+    sinc_half = torch.where(small, 1.0 - theta2 / 24.0, torch.sin(half) / half)
+    return torch.cat([w, axis_angle * 0.5 * sinc_half], dim=-1)
+
+
+def quaternion_to_axis_angle(quat: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (w, x, y, z) -> [..., 3].  The angle comes from
+    atan2(|xyz|, w), which stays accurate near 0 and near pi; below
+    |xyz|^2 = 1e-12 the scale 2 * half / |xyz| is its limit, 2."""
+    q = quat * torch.where(quat[..., :1] < 0, -1.0, 1.0)
+    n2 = (q[..., 1:] * q[..., 1:]).sum(-1, keepdim=True)
+    small = n2 < 1e-12
+    norm_xyz = torch.sqrt(torch.where(small, torch.ones_like(n2), n2))
+    half = torch.atan2(norm_xyz, q[..., :1])
+    scale = torch.where(small, torch.full_like(n2, 2.0), 2.0 * half / norm_xyz)
+    return q[..., 1:] * scale
+
+
+def matrix_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 3], through the quaternion."""
+    return quaternion_to_axis_angle(matrix_to_quaternion(matrix))
+
+
 def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
     """First two rows, flattened: [..., 3, 3] -> [..., 6]."""
     return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
@@ -136,3 +166,14 @@ def rot_z(angle: torch.Tensor) -> torch.Tensor:
     """Yaw rotation about +z from a [..., 1] angle -> [..., 3, 3]."""
     zeros = torch.zeros_like(angle)
     return axis_angle_to_matrix(torch.cat([zeros, zeros, angle], dim=-1))
+
+
+def rot_y(angle: torch.Tensor) -> torch.Tensor:
+    """Rotation about +y from a [..., 1] angle -> [..., 3, 3]."""
+    zeros = torch.zeros_like(angle)
+    return axis_angle_to_matrix(torch.cat([zeros, angle, zeros], dim=-1))
+
+
+def apply_rotation(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """R @ v for [..., 3, 3] x [..., 3] -> [..., 3]."""
+    return (mat @ vec[..., None])[..., 0]
