@@ -14,8 +14,9 @@ Hopper kernels of ``ops.chamfer_kernels``, CPU tensors their plain versions.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
@@ -133,6 +134,93 @@ def masked_chamfer_vertex_subset(x: torch.Tensor, y: torch.Tensor, x_mask: torch
     # real frames, so its part scores become rounding noise (ROADMAP C.4).
     ym = ym * (xm.amax(dim=-1, keepdim=True) > 0).to(x.dtype)
     return loss + _reduce(d2_y * ym, batch_dims) / torch.clamp_min(_reduce(ym, batch_dims), 1e-12)
+
+
+def chamfer_bidirectional(x: torch.Tensor, y: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
+    """Unweighted bidirectional chamfer: the mean of each direction's d2,
+    summed (``chamfer.py:275-282``)."""
+    x, y = _broadcast_clouds(x, y)
+    zero_x = torch.zeros((), dtype=x.dtype, device=x.device).expand(x.shape[:-1])
+    zero_y = torch.zeros((), dtype=y.dtype, device=y.device).expand(y.shape[:-1])
+    return (min_sqdist(x, y, zero_y).flatten(batch_dims).mean(-1)
+            + min_sqdist(y, x, zero_x).flatten(batch_dims).mean(-1))
+
+
+def part_vertex_index(vertex_labels, part_ids, device=None) -> List[Tuple[int, torch.Tensor]]:
+    """The vertex ids of every part in ``part_ids`` that has an id >= 0 and
+    at least one vertex: [(part id, ids [Vp] on ``device``)], in the order
+    of ``part_ids`` (a repeated id is listed again).  Host work, done once
+    per model."""
+    labels = (vertex_labels.cpu().numpy() if isinstance(vertex_labels, torch.Tensor)
+              else np.asarray(vertex_labels))
+    pids = part_ids.cpu().numpy() if isinstance(part_ids, torch.Tensor) else np.asarray(part_ids)
+    if device is None and isinstance(vertex_labels, torch.Tensor):
+        device = vertex_labels.device
+    out = []
+    for pid in pids.reshape(-1).tolist():
+        ids = np.nonzero(labels == pid)[0]
+        if pid >= 0 and ids.size:
+            out.append((int(pid), torch.as_tensor(ids, dtype=torch.long, device=device)))
+    return out
+
+
+def chamfer_by_part(markers: torch.Tensor, vertices: torch.Tensor,
+                    marker_labels_mode: torch.Tensor, vertex_labels, part_ids,
+                    marker_distance: float, single_directional: bool = False,
+                    batch_dims: int = 0,
+                    part_index: Optional[Sequence[Tuple[int, torch.Tensor]]] = None) -> torch.Tensor:
+    """Per-part chamfer sum (``chamfer.py:331-363``): for each part, the
+    chamfer of the part's vertices against the markers labelled with it,
+    scored (chamfer - marker_distance)^2; zero for an id < 0 and for a part
+    with no vertex or no marker.  markers [..., F, M, 3], vertices
+    [..., F, V, 3], marker_labels_mode [..., M] (leading dims broadcast;
+    ``batch_dims`` of them are kept in the result).
+
+    The vertices are the queries and the markers the targets (the
+    reference's direction); the reverse term is added when bidirectional.
+    Each part's vertices are gathered by static ids (``part_index``, or
+    computed here from ``vertex_labels`` and ``part_ids``), where the JAX
+    package masks all V vertices once per part; the other part's markers
+    are pushed away by the 1e10 bias, as there.  A part without markers
+    scores 1e10 + d and is zeroed before the sum."""
+    if part_index is None:
+        part_index = part_vertex_index(vertex_labels, part_ids, vertices.device)
+    lead = torch.broadcast_shapes(markers.shape[:-3], vertices.shape[:-3],
+                                  marker_labels_mode.shape[:-1])
+    F = vertices.shape[-3]
+    markers = markers.expand(lead + markers.shape[-3:])
+    labels = marker_labels_mode.expand(lead + marker_labels_mode.shape[-1:])
+    total = torch.zeros(lead[:batch_dims], dtype=vertices.dtype, device=vertices.device)
+    for pid, ids in part_index:
+        verts = vertices.index_select(-2, ids).expand(lead + (F, ids.numel(), 3))
+        mmask = (labels == pid).to(vertices.dtype)  # [..., M]
+        bias = ((1.0 - mmask) * BIG)[..., None, :].expand(lead + (F, mmask.shape[-1]))
+        cham = min_sqdist(verts, markers, bias).flatten(batch_dims).mean(-1)
+        if not single_directional:
+            zero = torch.zeros((), dtype=verts.dtype, device=verts.device).expand(verts.shape[:-1])
+            ym = mmask[..., None, :].expand(lead + (F, mmask.shape[-1]))
+            d2_y = min_sqdist(markers, verts, zero)
+            cham = cham + _reduce(d2_y * ym, batch_dims) / torch.clamp_min(_reduce(ym, batch_dims),
+                                                                           1e-12)
+        valid = _reduce(mmask, batch_dims) > 0
+        total = total + torch.where(valid, (cham - marker_distance) ** 2, torch.zeros_like(cham))
+    return total
+
+
+def nearest_vertex_frames(markers: torch.Tensor, vertices: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-frame nearest vertex, no gradient: markers [L, F, M, 3], vertices
+    [L, F, V, 3] -> (d2 [L, F, M], vertex ids [L, F, M]).  The ids come from
+    the rank kernel on CUDA (its plain version on the CPU); d2 is
+    ``squared_distance_matrix``'s value at the picked vertex (centered on the
+    frame's vertex centroid, clamped at 0), as ``nearest_vertex`` returns it
+    (``chamfer.py:89-92``)."""
+    idx = K.rank_nearest(markers.expand(vertices.shape[:-2] + markers.shape[-2:]), vertices)
+    c = vertices.mean(dim=-2, keepdim=True)
+    x = markers - c
+    y = torch.gather(vertices, -2, idx[..., None].expand(idx.shape + (3,))) - c
+    d2 = (x * x).sum(-1) + (y * y).sum(-1) - 2.0 * (x * y).sum(-1)
+    return torch.clamp_min(d2, 0.0), idx
 
 
 def summed_frame_distances(markers: torch.Tensor, vertices: torch.Tensor,

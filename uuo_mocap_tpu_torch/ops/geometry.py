@@ -1,6 +1,8 @@
-"""AABB, marker-mask and vertex-normal helpers (counterpart of
-``uuo_mocap_tpu/ops/geometry.py``)."""
+"""AABB, marker-mask, nearest-point and vertex-normal helpers (counterpart
+of ``uuo_mocap_tpu/ops/geometry.py``)."""
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -20,6 +22,32 @@ def get_marker_mask(markers: torch.Tensor) -> torch.Tensor:
     """1 where the marker is valid (not exactly at the origin; occluded
     markers are zero-filled upstream).  [..., M, 3] -> [..., M] float."""
     return (markers.abs().sum(dim=-1) != 0.0).to(markers.dtype)
+
+
+def closest_point(points: torch.Tensor, cloud: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Brute-force nearest neighbour of each point [..., N, 3] in ``cloud``
+    [..., V, 3] or [V, 3] (``geometry.py:31-42``) -> {"vertex_indices"
+    [..., N], "distances" [..., N], "points" [..., N, 3]}."""
+    from uuo_mocap_tpu_torch.ops.chamfer import squared_distance_matrix
+
+    d2, idx = squared_distance_matrix(points, cloud).min(dim=-1)
+    if cloud.dim() == 2:
+        near = cloud[idx]
+    else:
+        near = torch.gather(cloud.expand(idx.shape[:-1] + cloud.shape[-2:]), -2,
+                            idx[..., None].expand(idx.shape + (3,)))
+    return {"vertex_indices": idx, "distances": torch.sqrt(d2), "points": near}
+
+
+def geometric_median(points: torch.Tensor, iters: int = 32) -> torch.Tensor:
+    """Weiszfeld iterations from the mean, [..., N, 3] -> [..., 3]
+    (``geometry.py:45-55``; distances floored at 1e-8)."""
+    y = points.mean(dim=-2)
+    for _ in range(iters):
+        d = torch.linalg.norm(points - y[..., None, :], dim=-1)  # [..., N]
+        w = 1.0 / torch.clamp_min(d, 1e-8)
+        y = (points * w[..., None]).sum(-2) / w.sum(-1, keepdim=True)
+    return y
 
 
 def median(x: torch.Tensor, dim: int) -> torch.Tensor:

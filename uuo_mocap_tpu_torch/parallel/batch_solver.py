@@ -26,10 +26,15 @@ upsamples only the axes that carry the strided frames (pose, root, trans)
 and never touches betas, so the output betas are the same in every frame
 under any ``frame_stride``.
 
+With ``save_stages`` each sequence's ``stages`` dict holds the part fit's
+own result under ``part`` and the root stage's under ``root``, as the
+single-sequence solve writes them; the reference's batch solve writes no
+``root`` entry and files the root stage's result under ``part``.
+
 Not ported yet (they raise ``NotImplementedError``): a ``mesh`` (the
 vertex-sharded model axis), network-mode segmentation, the reprojection
-stages, the root stage, SDF markers, and the rank-per-iteration phase-1
-solver (``hypothesis_prune.rank_phase1``).
+stages, SDF markers, and the rank-per-iteration phase-1 solver
+(``hypothesis_prune.rank_phase1``).
 """
 from __future__ import annotations
 
@@ -97,7 +102,7 @@ class MultiSequenceSolver:
     def __init__(self, model: BodyModel, config: Dict[str, Any], mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "the vertex-sharded mesh (parallel/mesh.py) is not ported yet (ROADMAP A.18)")
+                "the vertex-sharded mesh (parallel/mesh.py) is not ported yet (ROADMAP A.9)")
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, the solve runs on {self.device}")
@@ -108,7 +113,8 @@ class MultiSequenceSolver:
         pcfg = config.get("parallel") or {}
         self.lane_width = int(pcfg.get("lane_width", 16))
         self._pad_width = bool(pcfg.get("pad_width", False))
-        for solver in (self.stages._chamfer_solver, self.stages._marker_solver):
+        for solver in (self.stages._chamfer_solver, self.stages._marker_solver,
+                       self.stages._root_solver):
             self._configure_solver(solver)
         self.prune_cfg = dict(pcfg.get("hypothesis_prune") or {})
         part_w = int(pcfg.get("part_lane_width", 16))
@@ -143,8 +149,6 @@ class MultiSequenceSolver:
             raise NotImplementedError("the reprojection stages are not ported yet (a later slice)")
         if cfg["stages"]["part"].get("mode", "cluster") == "network":
             raise NotImplementedError("network-mode segmentation is not ported yet (a later slice)")
-        if cfg["stages"]["root"]["num_iters"] > 0:
-            self.stages.root_stage_lanes()
         if cfg["stages"]["marker"].get("use_sdf"):
             self.stages.marker_stage_sdf_lanes()
         if self.prune_cfg.get("enabled") and self.prune_cfg.get("rank_phase1"):
@@ -266,6 +270,20 @@ class MultiSequenceSolver:
 
         labels_mode_b = torch.as_tensor(
             np.stack([_mode_per_column(marker_labels_b[q]) for q in range(Q)]), device=dev)
+
+        # ---- root stage, lanes = sequence
+        part_seeds = (betas_seed, root_seed, trans_seed)
+        do_root = cfg["stages"]["root"]["num_iters"] > 0
+        if do_root:
+            log(f"Batch[{Q}]: root stage...")
+            with timed("root"):
+                params_root, res_r = stages.root_stage_lanes(
+                    markers_b, weights_b, o_pose_b, o_betas_b, betas_seed, root_seed, trans_seed,
+                    labels_mode_b, frame_valid_b)
+            total_evals += int(res_r.num_evals.sum())
+            grab_stats("root", stages._root_solver)
+            root_seed, trans_seed, betas_seed = (
+                params_root.root_orient, params_root.trans, params_root.betas)
 
         # ---- chamfer + marker stages: lanes = sequence x yaw hypothesis
         A = int(cfg["num_root_orient_angles"])
@@ -433,7 +451,9 @@ class MultiSequenceSolver:
                 stage_dicts = {}
                 if cfg["find_best_part_fits"] and not fallback[q]:
                     stage_dicts["part"] = _params_to_stage_dict(SmplParams(
-                        o_pose_b[q], betas_seed[q], root_seed[q], trans_seed[q]))
+                        o_pose_b[q], part_seeds[0][q], part_seeds[1][q], part_seeds[2][q]))
+                if do_root:
+                    stage_dicts["root"] = _params_to_stage_dict(at_q(params_root))
                 if do_chamfer:
                     stage_dicts["chamfer"] = _params_to_stage_dict(at_q(chamfer_q))
                 if do_marker:

@@ -1,12 +1,12 @@
 """The staged multimodal solver, single-sequence path (counterpart of
 ``uuo_mocap_tpu/pipeline/multimodal.py``).
 
-Cluster mode on the shipped schedule: rigid segmentation (host) -> AABB
-heuristic -> part fit -> chamfer stage over A yaw hypotheses -> nearest
-points (use_mean) -> marker IK -> ``stage_repeats`` x (nearest points +
-marker IK) -> output dict with the reference's keys and shapes (numpy).
-Network segmentation, the reprojection and root stages, SDF markers and
-the iteration journal raise ``NotImplementedError``: later slices.
+Cluster mode: rigid segmentation (host) -> AABB heuristic -> part fit ->
+root stage -> chamfer stage over A yaw hypotheses -> nearest points ->
+marker IK -> ``stage_repeats`` x (nearest points + marker IK) -> output
+dict with the reference's keys and shapes (numpy).  Network segmentation,
+the reprojection stages, SDF markers and the iteration journal raise
+``NotImplementedError``: later slices.
 """
 from __future__ import annotations
 
@@ -176,9 +176,6 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
         raise NotImplementedError("the iteration journal is not ported yet (a later slice)")
     if config["stages"]["part"].get("mode", "cluster") == "network":
         raise NotImplementedError("network-mode segmentation is not ported yet (a later slice)")
-    if config["stages"]["root"]["num_iters"] > 0:
-        raise NotImplementedError("the root stage is not ported yet (a later slice)")
-
     t_start = time.time()
     progress = "progress" in print_options
 
@@ -268,6 +265,18 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
     marker_labels_mode = torch.as_tensor(
         _mode_per_column(marker_labels) if marker_labels.size
         else np.zeros(markers_np.shape[1], np.int64), device=dev)
+
+    # ---- root stage: {trans, yaw, betas} on the dense forward, pose fixed
+    if config["stages"]["root"]["num_iters"] > 0:
+        log("Stage [root]: optimizing root...")
+        with timed("root"):
+            params_root, res_r = stages.root_stage(
+                markers, weights, o_pose_body, betas, root_orient, trans, marker_labels_mode,
+                o_betas, frame_valid=frame_valid)
+        total_evals += int(res_r.num_evals.sum())
+        root_orient, trans, betas = params_root.root_orient, params_root.trans, params_root.betas
+        if save_stages:
+            output["stages"]["root"] = _params_to_stage_dict(params_root)
 
     # ---- chamfer + marker stages over A yaw hypotheses (lanes)
     A = int(config["num_root_orient_angles"])

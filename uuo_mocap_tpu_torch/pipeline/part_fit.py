@@ -8,7 +8,9 @@ Flow (cluster mode, the shipped default):
           dedup at 0.9 overlap -> [S, V] vertex masks
   device: one L-BFGS lane per subtree fits {yaw, trans[F, 3], betas[10]}
           with single-directional chamfer onto the subtree's vertices
-          (ranked by the Hopper rank kernel with a per-lane exclusion bias)
+          (ranked by the Hopper rank kernel with a per-lane exclusion bias;
+          with a ``ground`` loss, the dense forward differentiated through
+          ``min_sqdist``), plus the foot-contact and velocity terms
   device: bidirectional chamfer score per subtree (the forward kernel,
           both directions) -> argmin
   device: relabel markers by the frame-summed nearest vertex of the winner
@@ -55,7 +57,8 @@ class PartFitResult(NamedTuple):
 
 LANE_CHUNK = 8  # subtree lanes scored together; S is padded to a multiple
 # lane tensors with a frame axis (dim 1), strided in a frame-strided round
-_LANE_F_KEYS = ("markers", "marker_weights", "o_pose_body", "root_orient0")
+_LANE_F_KEYS = ("markers", "marker_weights", "o_pose_body", "root_orient0", "foot_contacts",
+                "frame_valid")
 
 
 def enumerate_subtree_masks(model: BodyModel, num_bones: int,
@@ -76,7 +79,7 @@ def enumerate_subtree_masks(model: BodyModel, num_bones: int,
     return masks, subtrees
 
 
-_PART_LOSSES = {"chamfer", "reg_betas"}
+_PART_LOSSES = {"chamfer", "reg_betas", "ground", "foot_contact", "foot_velocity", "velocity"}
 
 
 def pick_survivors(scores: np.ndarray, orig: np.ndarray, keep: int) -> np.ndarray:
@@ -139,24 +142,45 @@ class PartFitter:
         losses = cfg["stages"]["part"]["losses"]
         _require(losses, _PART_LOSSES, "part")
         model = self.model
+        # the sparse path unless a loss needs the dense vertices with
+        # gradients (``ground``); the joints come from whichever forward ran
+        sparse = "ground" not in losses
 
         def fun(p, lane, shared):
-            """Every subtree lane (``part_fit.py:103-151``, sparse path)."""
+            """Every subtree lane (``part_fit.py:103-151``)."""
             d = _data(lane, shared)
             markers = d["markers"]
             F = markers.shape[-3]
             sp = SmplParams(d["o_pose_body"], p["betas"],
                             _yaw_root(p["z"], d["root_orient0"], F), p["trans"])
-            with torch.no_grad():
-                verts_ng = _forward(model, _detach(sp))["vertices"]
-                bias = (1.0 - (d["vertex_mask"] > 0).to(markers.dtype)) * BIG
-                idx = _ranked_nearest(markers, verts_ng, bias)  # [L, F, M] within the subtree
-            pts = lbs_forward_at(model, sp.pose_body, sp.betas, sp.root_orient, sp.trans,
-                                 idx)["points"]
-            total = losses["chamfer"] * _per_lane_weighted_mean(
-                ((markers - pts) ** 2).sum(-1), d["marker_weights"])
+            if sparse:
+                with torch.no_grad():
+                    verts_ng = _forward(model, _detach(sp))["vertices"]
+                    bias = (1.0 - (d["vertex_mask"] > 0).to(markers.dtype)) * BIG
+                    idx = _ranked_nearest(markers, verts_ng, bias)  # [L, F, M] within the subtree
+                at = lbs_forward_at(model, sp.pose_body, sp.betas, sp.root_orient, sp.trans, idx)
+                total = losses["chamfer"] * _per_lane_weighted_mean(
+                    ((markers - at["points"]) ** 2).sum(-1), d["marker_weights"])
+                joints = at["joints"]
+            else:
+                out = _forward(model, sp)
+                total = losses["chamfer"] * masked_chamfer_vertex_subset(
+                    markers, out["vertices"], d["marker_weights"], d["vertex_mask"][:, None, :],
+                    single_directional=True, batch_dims=1)
+                joints = out["joints"]
+                total = total + losses["ground"] * L.ground_loss_vertices(
+                    out["vertices"], d["frame_valid"])
             if "reg_betas" in losses:
                 total = total + losses["reg_betas"] * L.mse(p["betas"], d["o_betas"])
+            if "foot_contact" in losses:
+                total = total + losses["foot_contact"] * L.foot_contact_loss(
+                    joints, d["foot_contacts"])
+            if "foot_velocity" in losses:
+                total = total + losses["foot_velocity"] * L.foot_velocity_loss(
+                    joints, d["foot_contacts"])
+            if "velocity" in losses:
+                total = total + losses["velocity"] * L.velocity_loss(
+                    p["trans"], markers.mean(dim=-2), d["frame_valid"])
             return total
 
         return BatchedLbfgs(fun, _stage_opts(cfg, "part"))
@@ -247,7 +271,7 @@ class PartFitter:
         frame), score them, and keep the best ``keep`` distinct subtrees per
         sequence; the survivors then descend to convergence at full frames.
         Phase wall times (synchronized on CUDA) go to ``last_phase_times``.
-        ``foot_contacts_b`` feeds no ported loss."""
+        foot_contacts [Q, F, 2] feed the foot losses (zeros when None)."""
         dev = markers_b.device
         self.last_phase_times: Dict[str, float] = {}
         t_last = [time.time()]
@@ -260,6 +284,10 @@ class PartFitter:
             t_last[0] = now
 
         Q, F, M, _ = markers_b.shape
+        if foot_contacts_b is None:
+            foot_contacts_b = markers_b.new_zeros((Q, F, 2))
+        if frame_valid_b is None:
+            frame_valid_b = markers_b.new_ones((Q, F))
         per_seq = []
         for q in range(Q):
             masks_np, subtrees = self._subtree_masks(int(num_rigid_groups[q]))
@@ -282,7 +310,8 @@ class PartFitter:
                    "trans": lane_rep(median(markers_b, dim=2)), "betas": lane_rep(o_betas_b)}
         lane = {"vertex_mask": masks.reshape(Ln, -1), "markers": lane_rep(markers_b),
                 "marker_weights": lane_rep(marker_weights_b), "o_pose_body": lane_rep(o_pose_body_b),
-                "o_betas": lane_rep(o_betas_b), "root_orient0": lane_rep(root_orient0_b)}
+                "o_betas": lane_rep(o_betas_b), "root_orient0": lane_rep(root_orient0_b),
+                "foot_contacts": lane_rep(foot_contacts_b), "frame_valid": lane_rep(frame_valid_b)}
 
         prune = dict((self.config.get("parallel") or {}).get("part_prune") or {})
         rounds, fstrides = _prune_rounds(prune, 15, 2, "part_prune")
@@ -388,8 +417,7 @@ class PartFitter:
                 marker_weights=weights_out,
                 chain=np.asarray(per_seq[q][1][int(lane_orig[q, best[q]])], np.int32),
                 distance=torch.as_tensor(row[int(best[q])]),
-                aabb_volume_ratio=self._aabb_ratio(
-                    markers_b[q], fitted_cols, None if frame_valid_b is None else frame_valid_b[q]),
+                aabb_volume_ratio=self._aabb_ratio(markers_b[q], fitted_cols, frame_valid_b[q]),
                 subtree_losses=torch.as_tensor(row),
                 lbfgs_evals=int(evals_per_seq[q]),
             ))
@@ -415,7 +443,10 @@ class PartFitter:
                    "trans": tile(trans0), "betas": tile(o_betas)}
         lane = {"vertex_mask": masks}
         shared = {"markers": markers, "marker_weights": marker_weights,
-                  "o_pose_body": o_pose_body, "o_betas": o_betas, "root_orient0": root_orient0}
+                  "o_pose_body": o_pose_body, "o_betas": o_betas, "root_orient0": root_orient0,
+                  "foot_contacts": markers.new_zeros((F, 2)) if foot_contacts is None
+                  else foot_contacts,
+                  "frame_valid": markers.new_ones(F) if frame_valid is None else frame_valid}
         p_opt, res = self._solver.run(params0, lane, shared)
 
         scores_s = self._score_lanes_any(p_opt["z"], p_opt["betas"], p_opt["trans"], masks,

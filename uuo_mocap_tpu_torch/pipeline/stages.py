@@ -1,5 +1,5 @@
-"""The L-BFGS solve stages and the marker-correspondence step, main-path
-parts (counterpart of ``uuo_mocap_tpu/pipeline/stages.py``).
+"""The L-BFGS solve stages (root, chamfer, marker) and the
+marker-correspondence step (counterpart of ``uuo_mocap_tpu/pipeline/stages.py``).
 
 Every closure is written for a lane batch: parameters carry a leading lane
 axis, and a closure returns one loss per lane.  Per-sequence data is shared
@@ -10,7 +10,10 @@ through the merged view ``_data``, so both forms run the same code.  Each
 chamfer closure ranks the nearest vertex of every (frame, marker) on a
 no-grad dense forward — the Hopper rank kernel on CUDA — and takes the loss
 and its gradient from the gathered forward at the ranked vertices
-(``stages.py:191-221``).
+(``stages.py:191-221``).  A chamfer stage with a dense term
+(``part_chamfer``, ``ground``, or bidirectional) and the root stage run the
+dense forward with gradients instead, through ``min_sqdist`` (the forward
+kernel both ways and the backward kernel on CUDA).
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ import torch
 from uuo_mocap_tpu_torch.body.model import BodyModel, lbs_forward, lbs_forward_at
 from uuo_mocap_tpu_torch.ops import chamfer_kernels
 from uuo_mocap_tpu_torch.ops import rotations as rot
-from uuo_mocap_tpu_torch.ops.chamfer import masked_chamfer, mean_nearest_vertex_over_frames
+from uuo_mocap_tpu_torch.ops.chamfer import (
+    BIG, masked_chamfer, mean_nearest_vertex_over_frames, nearest_vertex_frames, part_vertex_index)
+from uuo_mocap_tpu_torch.ops.point_mesh import point_mesh_distance
 from uuo_mocap_tpu_torch.solver import losses as L
 from uuo_mocap_tpu_torch.solver.lbfgs import BatchedLbfgs, LbfgsOptions
 
@@ -105,7 +110,10 @@ _SPARSE_SAFE_LOSSES = {
     "full_chamfer", "reg_pose_body", "reg_betas", "trans_vel",
     "root_orient_vel", "temporal",
 }
-_CHAMFER_LOSSES = {"full_chamfer", "reg_pose_body", "reg_betas", "trans_vel", "root_orient_vel"}
+_CHAMFER_LOSSES = {"full_chamfer", "part_chamfer", "ground", "reg_pose_body", "reg_betas",
+                   "trans_vel", "root_orient_vel"}
+_ROOT_LOSSES = {"part_chamfer", "full_chamfer", "root_orient_vel", "trans_vel", "reg_betas",
+                "ground"}
 _MARKER_LOSSES = {"marker", "reg_pose_body", "reg_betas", "temporal"}
 
 
@@ -116,6 +124,13 @@ def _require(losses, supported, stage):
             f"{stage}-stage losses {sorted(extra)} are not ported yet (a later slice of the port)")
 
 
+def _vertex_attachment(vid: torch.Tensor, dtype) -> MarkerAttachment:
+    """Each marker on one vertex: ids [..., M] -> ([..., M, 3], weights (1, 0, 0))."""
+    ids = torch.stack([vid, vid, vid], dim=-1)
+    w = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=vid.device)
+    return MarkerAttachment(ids, w.expand(ids.shape).contiguous())
+
+
 class SolveStages:
     """Builds the solve-stage solvers for a (model, config) pair."""
 
@@ -123,10 +138,98 @@ class SolveStages:
         self.model = model
         self.config = config
         self.vertex_labels = model.vertex_part_labels()  # [V]
+        self.part_ids = torch.arange(model.lbs_weights.shape[1], device=model.device)  # [P]
         opt = config["optimizer"]
         if opt.get("rank_per_iteration") or opt.get("rank_hier"):
             raise NotImplementedError(
                 "optimizer.rank_per_iteration / rank_hier are not ported yet (a later slice)")
+
+    @functools.cached_property
+    def _part_index(self):
+        """Each body part's vertex ids, gathered by ``part_chamfer``."""
+        return part_vertex_index(self.vertex_labels, self.part_ids)
+
+    def _part_chamfer(self, d, vertices, single_dir):
+        return L.part_chamfer_loss(d["markers"], vertices, d["marker_labels_mode"],
+                                   self.vertex_labels, self.part_ids, single_dir,
+                                   part_index=self._part_index)
+
+    # ------------------------------------------------------------------ root
+    @functools.cached_property
+    def _root_solver(self) -> BatchedLbfgs:
+        """{trans, yaw, betas} per lane with the pose held at the prior's
+        (``stages.py:266-318``): every closure runs the dense forward."""
+        cfg = self.config
+        scfg = cfg["stages"]["root"]
+        losses = scfg["losses"]
+        _require(losses, _ROOT_LOSSES, "root")
+        model = self.model
+        single_dir = bool(scfg["single_directional"])
+
+        def fun(p, lane, shared):
+            d = _data(lane, shared)
+            root_orient0 = d["root_orient0"]
+            z_root = self._root_apply(p["z"], root_orient0)
+            out = _forward(model, SmplParams(d["o_pose_body"], p["betas"], z_root, p["trans"]))
+            total = torch.zeros(p["trans"].shape[0], dtype=p["trans"].dtype, device=p["trans"].device)
+            if "part_chamfer" in losses:
+                total = total + losses["part_chamfer"] * self._part_chamfer(
+                    d, out["vertices"], single_dir)
+            if "full_chamfer" in losses:
+                total = total + losses["full_chamfer"] * L.full_chamfer_loss(
+                    d["markers"], out["vertices"], d["weights"], single_dir)
+            if "root_orient_vel" in losses:
+                total = total + losses["root_orient_vel"] * L.root_orient_vel_loss(
+                    z_root, root_orient0, d["frame_valid"])
+            if "trans_vel" in losses:
+                total = total + losses["trans_vel"] * L.trans_vel_loss(
+                    p["trans"], d["markers"], d["frame_valid"])
+            if "reg_betas" in losses:
+                total = total + losses["reg_betas"] * L.mse(p["betas"], d["o_betas"])
+            if "ground" in losses:
+                total = total + losses["ground"] * L.ground_loss_joints(
+                    out["joints"], d["frame_valid"])
+            return total
+
+        return BatchedLbfgs(fun, _stage_opts(cfg, "root"))
+
+    def _root_apply(self, z, root_orient0):
+        """The root stage's rotation of the prior root [(L,) F, 1, 3, 3]: one
+        yaw per lane shared by the frames, z [L, 1, 1, 1]
+        (``constrained_rotation``); a yaw per frame, z [L, F, 1, 1]
+        (``yaw_lock``); or a free rotation per frame, z [L, F, 1, 6]."""
+        scfg = self.config["stages"]["root"]
+        if scfg.get("constrained_rotation", False):
+            return rot.rot_z(z.expand(z.shape[0], root_orient0.shape[-4], 1, 1)) @ root_orient0
+        if scfg.get("yaw_lock", True):
+            return rot.rot_z(z) @ root_orient0
+        return rot.rotation_6d_to_matrix(z)
+
+    def _root_z0(self, Ln, F, dt, dev):
+        """The root stage's initial rotation parameters for Ln lanes."""
+        scfg = self.config["stages"]["root"]
+        if scfg.get("constrained_rotation", False):
+            return torch.zeros((Ln, 1, 1, 1), dtype=dt, device=dev)
+        if scfg.get("yaw_lock", True):
+            return torch.zeros((Ln, F, 1, 1), dtype=dt, device=dev)
+        eye = torch.eye(3, dtype=dt, device=dev).expand(Ln, F, 1, 3, 3)
+        return rot.matrix_to_rotation_6d(eye)
+
+    def root_stage(self, markers, weights, o_pose_body, betas0, root_orient0, trans0,
+                   marker_labels_mode, o_betas, frame_valid=None):
+        """Optimize {trans, yaw, betas} of one sequence, pose fixed
+        (``stages.py:320-343``).  -> (SmplParams, LbfgsResult)."""
+        F = trans0.shape[0]
+        dev, dt = markers.device, markers.dtype
+        params0 = {"trans": trans0[None], "z": self._root_z0(1, F, dt, dev), "betas": betas0[None]}
+        lane = {"root_orient0": root_orient0[None]}
+        shared = {"markers": markers, "weights": weights, "o_pose_body": o_pose_body,
+                  "o_betas": o_betas, "marker_labels_mode": marker_labels_mode,
+                  "frame_valid": torch.ones(F, dtype=dt, device=dev) if frame_valid is None
+                  else frame_valid}
+        p_opt, res = self._root_solver.run(params0, lane, shared)
+        params = self._post_root(p_opt, root_orient0[None], o_pose_body[None])
+        return SmplParams(*(t[0] for t in params)), res
 
     # --------------------------------------------------------------- chamfer
     @functools.cached_property
@@ -148,13 +251,21 @@ class SolveStages:
             pose = rot.rotation_6d_to_matrix(p["pose6d"])
             sp = SmplParams(pose, p["betas"], z_root, p["trans"])
             total = torch.zeros(p["trans"].shape[0], dtype=p["trans"].dtype, device=p["trans"].device)
-            if "full_chamfer" in losses:
-                if sparse:
-                    cham = _sparse_chamfer(model, sp, d["markers"], d["weights"])
-                else:  # dense: the min_sqdist Function (and its backward kernel)
-                    cham = masked_chamfer(d["markers"], _forward(model, sp)["vertices"],
-                                          d["weights"], single_dir, batch_dims=1)
-                total = total + losses["full_chamfer"] * cham
+            if sparse:
+                if "full_chamfer" in losses:
+                    total = total + losses["full_chamfer"] * _sparse_chamfer(
+                        model, sp, d["markers"], d["weights"])
+            else:  # dense: the min_sqdist Function (and its backward kernel)
+                out = _forward(model, sp)
+                if "part_chamfer" in losses:
+                    total = total + losses["part_chamfer"] * self._part_chamfer(
+                        d, out["vertices"], single_dir)
+                if "full_chamfer" in losses:
+                    total = total + losses["full_chamfer"] * L.full_chamfer_loss(
+                        d["markers"], out["vertices"], d["weights"], single_dir)
+                if "ground" in losses:
+                    total = total + losses["ground"] * L.ground_loss_joints(
+                        out["joints"], d["frame_valid"])
             if "root_orient_vel" in losses:
                 total = total + losses["root_orient_vel"] * L.root_orient_vel_loss(
                     z_root, root_orient0, d["frame_valid"])
@@ -209,23 +320,85 @@ class SolveStages:
     def nearest_points_batched(self, markers, params: SmplParams, img_mask,
                                marker_labels_mode=None) -> MarkerAttachment:
         """Marker -> surface correspondence for every lane of ``params``
-        (``stages.py:514-535``, the shipped ``use_mean`` path): the argmin
-        vertex of the frame-averaged [M, V] distance over img_mask frames.
-        markers [F, M, 3] and img_mask [F] are shared by the lanes, or
-        carry the lane axis ([Ln, F, M, 3], [Ln, F])."""
+        (``stages.py:494-585``).  markers [F, M, 3] and img_mask [F] are shared
+        by the lanes, or carry the lane axis ([Ln, F, M, 3], [Ln, F]);
+        marker_labels_mode is [M] or [Ln, M].
+
+        ``use_mean`` (which wins over ``use_barycentric``): the argmin vertex
+        of the frame-averaged [M, V] distance over img_mask frames.
+        Otherwise each frame's nearest vertex (the rank kernel on CUDA) or
+        nearest surface point (``point_mesh_distance``), read at one frame
+        per marker chosen by ``segment.granularity``: ``full``, the frame of
+        least mean distance; ``marker``, each marker's nearest frame;
+        ``part`` (with labels; else ``full``), per part the frame of least
+        median distance over the part's markers."""
         loc = self.config["stages"]["compute_locations"]
-        if not loc["use_mean"] or loc["use_barycentric"]:
-            raise NotImplementedError(
-                "compute_locations without use_mean (the per-frame and barycentric paths) "
-                "is not ported yet (a later slice)")
+        granularity = self.config["stages"]["segment"]["granularity"]
         with torch.no_grad():
             betas = params.betas.expand(params.trans.shape[:-1] + (10,)).mean(-2, keepdim=True)
             vertices = _forward(self.model, SmplParams(
                 params.pose_body, betas, params.root_orient, params.trans))["vertices"]
-            vid = mean_nearest_vertex_over_frames(markers, vertices, img_mask)  # [A, M]
-        ids = torch.stack([vid, vid, vid], dim=-1)
-        w = torch.tensor([1.0, 0.0, 0.0], dtype=markers.dtype, device=markers.device)
-        return MarkerAttachment(ids, w.expand(ids.shape).contiguous())
+            if loc["use_mean"]:
+                vid = mean_nearest_vertex_over_frames(markers, vertices, img_mask)  # [A, M]
+                return _vertex_attachment(vid, markers.dtype)
+            A, F = vertices.shape[:2]
+            M = markers.shape[-2]
+            mk = markers.expand(A, F, M, 3)
+            if loc["use_barycentric"]:
+                dist, face_idx, bary = self._point_mesh_frames(mk, vertices)
+            else:
+                d2, vid = nearest_vertex_frames(mk, vertices)
+                dist = torch.sqrt(d2 + 1e-18)
+            dist = torch.where(img_mask[..., None] > 0, dist, torch.full_like(dist, BIG))
+            if granularity == "marker":
+                best_f = dist.argmin(dim=1)  # [A, M]
+            elif granularity == "part" and marker_labels_mode is not None:
+                best_f = self._part_best_frames(dist, marker_labels_mode.expand(A, M))
+            else:  # "full"
+                best_f = dist.mean(-1).argmin(dim=1)[:, None].expand(A, M)
+            sel = best_f[:, None, :]  # [A, 1, M]
+            if not loc["use_barycentric"]:
+                return _vertex_attachment(vid.gather(1, sel)[:, 0], markers.dtype)
+            faces = torch.as_tensor(self.model.faces, dtype=torch.long, device=markers.device)
+            ids = faces[face_idx.gather(1, sel)[:, 0]]  # [A, M, 3]
+            w = bary.gather(1, sel[..., None].expand(A, 1, M, 3))[:, 0]
+            return MarkerAttachment(ids, w.contiguous())
+
+    def _point_mesh_frames(self, markers, vertices, chunk: int = 32):
+        """Per-frame closest surface point: markers [A, F, M, 3], vertices
+        [A, F, V, 3] -> (distance [A, F, M], face ids [A, F, M], barycentric
+        [A, F, M, 3]), ``chunk`` frames at a time (the [chunk, M, T] working
+        set of ``point_mesh_distance``)."""
+        A, F, M, _ = markers.shape
+        mk, vs = markers.reshape(A * F, M, 3), vertices.reshape(A * F, -1, 3)
+        outs = [point_mesh_distance(mk[f0:f0 + chunk], vs[f0:f0 + chunk], self.model.faces)
+                for f0 in range(0, A * F, chunk)]
+        return (torch.cat([o["distance"] for o in outs]).reshape(A, F, M),
+                torch.cat([o["face_index"] for o in outs]).reshape(A, F, M),
+                torch.cat([o["barycentric"] for o in outs]).reshape(A, F, M, 3))
+
+    def _part_best_frames(self, dist, labels):
+        """Per lane and part, the frame whose median distance over the
+        part's markers is least (frame 0 for a part without markers); each
+        marker takes its part's frame (``stages.py:504-571``).  dist
+        [A, F, M] (masked frames at 1e10), labels [A, M] -> [A, M]."""
+        A, F, M = dist.shape
+        P = int(self.part_ids.shape[0])
+        pids = torch.arange(P, device=labels.device)
+        pmask = labels[:, None, :] == pids[None, :, None]  # [A, P, M]
+        vals = torch.where(pmask[:, :, None, :], dist[:, None], torch.full_like(dist[:, None], BIG))
+        srt = vals.sort(dim=-1).values  # [A, P, F, M]
+        n1 = pmask.sum(-1) - 1  # [A, P]
+        half = torch.div(n1, 2, rounding_mode="floor")
+        lo = torch.clamp_min(half, 0)
+        hi = torch.clamp_min(half + torch.remainder(n1, 2), 0)
+
+        def at(i):
+            return srt.gather(-1, i[:, :, None, None].expand(A, P, F, 1))[..., 0]
+
+        med = 0.5 * (at(lo) + at(hi))  # [A, P, F]
+        part_best = torch.where(n1 >= 0, med.argmin(dim=-1), torch.zeros_like(n1))  # [A, P]
+        return part_best.gather(1, labels.clamp(0, P - 1))
 
     def nearest_points(self, markers, params: SmplParams, img_mask,
                        marker_labels_mode=None) -> MarkerAttachment:
@@ -287,8 +460,18 @@ class SolveStages:
     # every per-sequence tensor moves from ``shared`` into ``lane``, so
     # sequences x hypotheses become lanes of the same closures.
 
-    def root_stage_lanes(self, *args, **kw):
-        raise NotImplementedError("the root stage is not ported yet (a later slice)")
+    def root_stage_lanes(self, markers_l, weights_l, o_pose_l, o_betas_l, betas0_l, root0_l,
+                         trans0_l, labels_l, frame_valid_l):
+        """Per-lane root stage (``stages.py:731-757``): every argument carries
+        a leading lane axis (lane = sequence).  -> (SmplParams, LbfgsResult)."""
+        Ln, F = root0_l.shape[0], root0_l.shape[1]
+        params0 = {"trans": trans0_l, "z": self._root_z0(Ln, F, trans0_l.dtype, trans0_l.device),
+                   "betas": betas0_l}
+        lane = {"root_orient0": root0_l, "markers": markers_l, "weights": weights_l,
+                "o_pose_body": o_pose_l, "o_betas": o_betas_l, "marker_labels_mode": labels_l,
+                "frame_valid": frame_valid_l}
+        p_opt, res = self._root_solver.run(params0, lane, {})
+        return self._post_root(p_opt, root0_l, o_pose_l), res
 
     def marker_stage_sdf_lanes(self, *args, **kw):
         raise NotImplementedError("marker.use_sdf is not ported yet (a later slice)")
@@ -344,6 +527,10 @@ class SolveStages:
     def _post_marker(p: Dict[str, torch.Tensor]) -> SmplParams:
         return SmplParams(rot.rotation_6d_to_matrix(p["pose6d"]), p["betas"],
                           rot.rotation_6d_to_matrix(p["root6d"]), p["trans"])
+
+    def _post_root(self, p: Dict[str, torch.Tensor], root0: torch.Tensor,
+                   o_pose: torch.Tensor) -> SmplParams:
+        return SmplParams(o_pose, p["betas"], self._root_apply(p["z"], root0), p["trans"])
 
     def _post_chamfer(self, p: Dict[str, torch.Tensor], root0: torch.Tensor) -> SmplParams:
         return SmplParams(rot.rotation_6d_to_matrix(p["pose6d"]), p["betas"],
