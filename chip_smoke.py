@@ -31,7 +31,7 @@
    within ``bench.py``'s random-layout gates (mean and median <= 25 mm, max
    <= 35 mm).  Prints the solve time, frames per second, stage times, L-BFGS
    evaluation counts, the winning hypotheses, launches per stage call and
-   an output digest.
+   digests of the output and of the chamfer-stage snapshot.
 4. The cmu_41 batch (bench.py's second layout, its gates 12 / 18 mm), as 3.
 5. Full-surface phase: the random batch through ``MultiSequenceSolver`` with
    ``full_surface_config()`` (``FULL_SURFACE`` merged into 3.'s config): the
@@ -46,7 +46,30 @@
    ROADMAP C.7).  Prints stage
    times, evaluations, launches per stage call, the peak device memory and
    a digest.  Its launch counts are the kernels line's.
-6. Single-sequence phase: one synthetic 450 x 41 sequence solved through
+6. Model phase: the four shipped checkpoints (``checkpoints/``) read by the
+   port's msgpack reader and built on the card; ``checkpoints/
+   MANIFEST.json``'s held-out metrics recomputed with
+   ``uuo_mocap_tpu_torch/models/heldout.py`` at its counts (4 x 8 windows
+   of 41 markers; n = 2048).  Gates: every accuracy within 0.005 of
+   MANIFEST's, the Pos2BC error within 0.5 mm of its 1.7 mm, the PosDiff
+   reduction within 0.01 of its 0.8385, and
+   ``tests/test_demo_checkpoints.py``'s quality gates.
+7. Network phase: the random batch with ``part.mode: network`` (the
+   multimodal segmenter on each prior's joints; the largest chain of its
+   labels restricts the part fit).  Gates: as 3.'s shapes; the rank kernel
+   and both forward routes launched; every sequence <= 35 mm and the mean
+   <= 3.'s mean + 2 mm.  Prints the segmentation's label accuracy against
+   the generating vertices' parts, the chains, the fit-mask sizes, stage
+   times, evaluations, launches per stage call and a digest.
+8. SDF phase: the random batch with ``marker.use_sdf: true`` (the marker
+   stages co-optimize virtual markers through the Pos2BC / PosDiff nets on
+   a dense forward).  Gates: the chamfer-stage snapshot's digest equal to
+   3.'s (only the marker stages differ); outputs finite, of the
+   reference's shapes; the rank kernel and both forward routes launched;
+   every sequence <= 60 mm and the mean <= 45 mm (provisional, from the
+   JAX package's TPU record).  Prints the marker stages' times, evaluations
+   and peak device memory.
+9. Single-sequence phase: one synthetic 450 x 41 sequence solved through
    ``multimodal_video_mocap(device="cuda")`` on the shipped
    ``configs/video_mocap.yaml`` (4 yaw hypotheses), with every launch count
    reset just before and read just after (the forward counts its few-query
@@ -56,20 +79,23 @@
    same stage with ``single_directional: false`` and the dense branch's
    ``part_chamfer`` and ``ground`` terms, the path that differentiates
    min_sqdist and so launches the backward kernel) runs a few iterations.
-7. CLI phase: the user's entry points in a temporary directory (export,
+10. CLI phase: the user's entry points in a temporary directory (export,
    ``cli.test --batch 4`` and sequential, ``eval.comparisons``).
 
 The kernel phase also holds the forward at the root stage's part-chamfer
 shapes (4 sequences x 450 frames: the largest and the smallest part with
 markers, its vertices against the markers with the other parts' markers
 biased away, and back) and the backward at a part's vertex count and at the
-dense part fit's 16-lane working set.
+dense part fit's 16-lane working set, each beside ``zeros`` + ``index_add_``.
+Every batch configuration sets ``checkpoints_dir`` to the repository's
+``checkpoints/``, the CLI phase's config too.
 
 Prints each solve's launch counts as a ``{"<phase>_launches": {...}}`` line,
 then a ``{"kernels": [...]}`` line (launches from the full-surface phase,
 which runs every kernel), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Imports
-nothing of JAX.
+nothing of JAX.  On one H100 (700 W) the whole run took 615-729 s, the
+kernel build included, the host setting the spread (allow it 1200 s).
 """
 from __future__ import annotations
 
@@ -101,6 +127,7 @@ AGREE_MIN = 0.9999
 # ~9e-5 (9.5 mm); float32 rounding of the O(1) centered terms measured <= 3.6e-7
 FWD_VAL_TOL = 1e-6
 SEED = 0
+STAGE_KEYS = ("trans", "root_orient", "pose_body", "betas")
 # every kernel instantiation in csrc/chamfer.cu, as its mangled name shows
 # it: the staged kernel for Q = 1-7 queries per lane, for the rank pass (no
 # value) and the few-query forward (value; whole frame, or in chunks); the
@@ -124,6 +151,21 @@ BATCH_FRAME_STRIDE = 1
 # below 1.5 times the prior's MPJPE (it reached 1.02 times)
 FULL_SURFACE_CHAMFER_GATE_MM = 60.0
 FULL_SURFACE_PRIOR_FACTOR = 1.5
+CHECKPOINTS = os.path.join(HERE, "checkpoints")
+# the model phase: each held-out accuracy within this of checkpoints/
+# MANIFEST.json's (the JAX package's evaluators reproduce every MANIFEST
+# number on the CPU; the port's give the same values there); the Pos2BC
+# expected-point error within 0.5 mm of the recorded 1.7 mm; the PosDiff
+# distance reduction within 0.01 of the recorded 0.8385
+MANIFEST_ACC_TOL = 0.005
+POS2BC_ERR_TOL_M = 0.0005
+POS_DIFF_REDUCTION_TOL = 0.01
+# the network phase: tools/exp_network_mode.py's criterion, the mean MPJPE at
+# most the same run's random-batch mean + 2 mm, and every sequence <= 35 mm
+NETWORK_MEAN_MARGIN_MM = 2.0
+# the SDF phase, provisional: per sequence <= 60 mm and the mean <= 45 mm
+# (the JAX package's TPU record of the SDF mode reads 38.48 mm on this batch)
+SDF_GATE_MM, SDF_MEAN_GATE_MM = 60.0, 45.0
 
 
 def require(cond: bool, msg: str) -> None:
@@ -355,9 +397,10 @@ def kernel_phase(model, gt, markers):
     #      working set (16 lanes x F frames)
     results["min_sqdist_bwd"] = check_backward("", *backward_inputs(V), V, library=True)
     Vp = max(ids.numel() for ids in part_vertex_ids(model).values())  # the largest part
-    results["min_sqdist_bwd_part"] = check_backward("part", *backward_inputs(Vp), Vp)
+    results["min_sqdist_bwd_part"] = check_backward("part", *backward_inputs(Vp), Vp,
+                                                    library=True)
     results["min_sqdist_bwd_partfit"] = check_backward(
-        "part fit", *backward_inputs(V, lanes=16), V)
+        "part fit", *backward_inputs(V, lanes=16), V, library=True)
     return results
 
 
@@ -464,10 +507,11 @@ def part_inputs(model, gt, markers, L=4):
 def bench_parallel_config():
     """``configs/video_mocap.yaml`` with ``bench.py:479-534``'s parallel
     settings (its defaults, no environment overrides), the hypothesis
-    rounds at ``BATCH_FRAME_STRIDE``."""
+    rounds at ``BATCH_FRAME_STRIDE``, and the repository's checkpoints."""
     from uuo_mocap_tpu_torch.data.config import load_config
 
     cfg = load_config(os.path.join(HERE, "configs", "video_mocap.yaml"))
+    cfg["checkpoints_dir"] = CHECKPOINTS  # the CLI phase runs in another directory
     cfg["parallel"] = {
         "lane_width": 16, "part_lane_width": 16, "pad_width": True,
         "hypothesis_prune": {"enabled": True, "at_iters": [50, 150], "keep": [2, 1],
@@ -601,10 +645,16 @@ def check_batch_results(model, out, gts, preps, tag):
     return errs
 
 
+def stage_digest(out, stage):
+    """The digest of every sequence's ``stages[stage]`` parameters."""
+    return digest(*(r["stages"][stage][k] for r in out["results"] for k in STAGE_KEYS))
+
+
 def batch_phase(model, layout="random"):
     """``MultiSequenceSolver.solve_prepared`` on one of bench.py's batches:
     the random layout (the main path) or cmu_41, each held to its gates.
-    -> launch counts of the solve."""
+    -> {"counts": launch counts, "mpjpe": per-sequence MPJPE (mm),
+    "chamfer_digest": the chamfer-stage snapshot's digest}."""
     import numpy as np
     import torch
 
@@ -627,7 +677,7 @@ def batch_phase(model, layout="random"):
                          per_call)
     K.reset_launch_counts()
     t0 = time.time()
-    out = solver.solve_prepared(preps)
+    out = solver.solve_prepared(preps, save_stages=True)
     torch.cuda.synchronize()
     solve_s = time.time() - t0
     counts = K.launch_counts()
@@ -641,9 +691,9 @@ def batch_phase(model, layout="random"):
           f"{[[int(c) for c in r['chain']] for r in out['results']]}", flush=True)
     print(f"{tag} launches per stage call: {per_call}", flush=True)
     print(json.dumps({f"{layout}_batch_launches": counts}), flush=True)
-    keys = ("trans", "root_orient", "pose_body", "betas")
-    print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in keys))}",
-          flush=True)
+    chamfer_digest = stage_digest(out, "chamfer")
+    print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in STAGE_KEYS))}, "
+          f"chamfer-stage digest {chamfer_digest}", flush=True)
     require_launches(counts, f"the {tag} solve")
 
     errs = check_batch_results(model, out, gts, preps, tag)
@@ -653,7 +703,7 @@ def batch_phase(model, layout="random"):
     require(mean_v <= gates[0] and med_v <= gates[0],
             f"{tag} MPJPE mean {mean_v:.2f} / median {med_v:.2f} mm above {gates[0]} mm")
     require(max_v <= gates[1], f"{tag} MPJPE max {max_v:.2f} mm above {gates[1]} mm")
-    return counts
+    return {"counts": counts, "mpjpe": errs, "chamfer_digest": chamfer_digest}
 
 
 def full_surface_phase(model):
@@ -700,8 +750,7 @@ def full_surface_phase(model):
           f"{[[int(c) for c in r['chain']] for r in out['results']]}", flush=True)
     print(f"{tag} launches per stage call: {per_call}", flush=True)
     print(json.dumps({f"{tag}_launches": counts}), flush=True)
-    keys = ("trans", "root_orient", "pose_body", "betas")
-    print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in keys))}",
+    print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in STAGE_KEYS))}",
           flush=True)
     require_launches(counts, f"the {tag} solve")
     root_calls = [c for name, c in per_call if name == "root_stage_lanes"]
@@ -730,6 +779,231 @@ def full_surface_phase(model):
         require(e <= FULL_SURFACE_PRIOR_FACTOR * p,
                 f"{tag} sequence {q}: MPJPE {e:.2f} mm above {FULL_SURFACE_PRIOR_FACTOR} x the "
                 f"prior's {p:.2f} mm")
+    return counts
+
+
+def model_phase(model):
+    """The four shipped checkpoints, read by the port's msgpack reader and
+    built on the card, and MANIFEST.json's held-out metrics recomputed with
+    ``models/heldout.py`` at its counts (4 batches of 8 windows x 41
+    markers, random vertices and the cmu_41 layout; n = 2048 surface
+    points).  Gates: each accuracy within MANIFEST_ACC_TOL of MANIFEST's,
+    the Pos2BC error within POS2BC_ERR_TOL_M of it, the PosDiff reduction
+    within POS_DIFF_REDUCTION_TOL; and ``tests/test_demo_checkpoints.py``'s
+    quality gates."""
+    from uuo_mocap_tpu_torch import convert
+    from uuo_mocap_tpu_torch.models import heldout
+    from uuo_mocap_tpu_torch.models.checkpoints import load_params
+
+    with open(os.path.join(CHECKPOINTS, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    t0 = time.time()
+    nets = {name: build(load_params(CHECKPOINTS, name), "cuda") for name, build in (
+        ("marker_segmenter", convert.marker_segmenter_from_flax),
+        ("marker_segmenter_multimodal", convert.marker_segmenter_multimodal_from_flax),
+        ("barycentric_coords/pos2bc", convert.pos2bc_from_flax),
+        ("barycentric_coords/pos_diff", convert.pos_diff_from_flax))}
+    print(f"model: four checkpoints read and built on the card in {time.time() - t0:.2f} s",
+          flush=True)
+    t0 = time.time()
+    got = {}
+    for name in ("marker_segmenter", "marker_segmenter_multimodal"):
+        for key, layout in (("held_out_accuracy", None),
+                            ("held_out_accuracy_cmu41_layout", "cmu_41")):
+            acc = heldout.eval_segmenter(model, nets[name], name.endswith("multimodal"),
+                                         layout=layout)
+            want = manifest[name][key]
+            got[(name, key)] = acc
+            print(f"model: {name} {key} {acc:.6f} (MANIFEST {want})", flush=True)
+            require(abs(acc - want) <= MANIFEST_ACC_TOL,
+                    f"{name} {key} {acc:.4f} not within {MANIFEST_ACC_TOL} of {want}")
+    err = heldout.eval_pos2bc(model, nets["barycentric_coords/pos2bc"])
+    want = manifest["barycentric_coords/pos2bc"]["held_out_expected_point_err_m"]
+    print(f"model: pos2bc expected-point error {err * 1e3:.4f} mm (MANIFEST {want * 1e3} mm)",
+          flush=True)
+    require(abs(err - want) <= POS2BC_ERR_TOL_M, f"Pos2BC error {err} m not within "
+            f"{POS2BC_ERR_TOL_M} m of {want} m")
+    after, before = heldout.eval_pos_diff(model, nets["barycentric_coords/pos_diff"])
+    red = 1.0 - after / before
+    want = manifest["barycentric_coords/pos_diff"]["held_out_dist_reduction"]
+    print(f"model: pos_diff surface distance {before * 1e3:.4f} -> {after * 1e3:.4f} mm, "
+          f"reduction {red:.6f} (MANIFEST {want})", flush=True)
+    require(abs(red - want) <= POS_DIFF_REDUCTION_TOL,
+            f"PosDiff reduction {red:.4f} not within {POS_DIFF_REDUCTION_TOL} of {want}")
+    # tests/test_demo_checkpoints.py's gates, on the card's numbers
+    base = manifest["marker_segmenter"]["majority_class_baseline"]
+    require(got[("marker_segmenter", "held_out_accuracy")] >= base + 0.05
+            and got[("marker_segmenter", "held_out_accuracy_cmu41_layout")] >= 0.85
+            and got[("marker_segmenter_multimodal", "held_out_accuracy")] >= 0.70
+            and got[("marker_segmenter_multimodal", "held_out_accuracy_cmu41_layout")] >= 0.95
+            and err <= 0.005 and red >= 0.60, "a demo-checkpoint quality gate failed")
+    print(f"model: held-out metrics in {time.time() - t0:.2f} s", flush=True)
+
+
+def generating_vertex_ids(model, seed0=BATCH_SEED0):
+    """The generating vertex of every marker of ``make_batch``'s random
+    batch, per sequence (the same draws)."""
+    from uuo_mocap_tpu_torch.data.synthetic import generate_markers, random_pose_sequence
+
+    out = []
+    for q in range(BATCH):
+        s = seed0 + 3 * q
+        gt = random_pose_sequence(F_FRAMES, seed=s, yaw=0.9, travel=0.5, device="cuda")
+        out.append(generate_markers(model, gt, num_markers=N_MARKERS, seed=s + 1,
+                                    occlusion_rate=0.05).vertex_ids)
+    return out
+
+
+def network_phase(model, random_mpjpe):
+    """The random batch through ``MultiSequenceSolver`` with the batch
+    phases' config and ``part.mode: network``: the multimodal segmenter on
+    each sequence's prior joints, its largest chain restricting the part
+    fit.  Gates: outputs finite and of the reference's shapes; the rank
+    kernel and both forward routes launched; every sequence <= 35 mm and the
+    mean <= the random batch's mean (``random_mpjpe``, this run) +
+    NETWORK_MEAN_MARGIN_MM.  Prints the segmentation's label accuracy
+    against the generating vertices' parts, the chains and fit-mask sizes.
+    -> launch counts of the solve."""
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.parallel import batch_solver
+    from uuo_mocap_tpu_torch.pipeline.segmentation import merge_symmetric_labels
+
+    tag = "network"
+    gts, preps = make_batch(model)
+    cfg = bench_parallel_config()
+    cfg["stages"]["part"]["mode"] = "network"
+    solver = batch_solver.MultiSequenceSolver(model, cfg, device="cuda")
+    per_call, segs = [], []
+    count_stage_launches(solver.part_fitter, ("fit_batch",), per_call)
+    count_stage_launches(solver.stages, ("chamfer_stage_lanes", "score_chamfer_lanes",
+                                         "nearest_points_lanes_nolabel", "marker_stage_lanes"),
+                         per_call)
+    segment = batch_solver.network_segmentation
+
+    def recorded(*args, **kw):
+        segs.append(segment(*args, **kw))
+        return segs[-1]
+
+    batch_solver.network_segmentation = recorded
+    try:
+        K.reset_launch_counts()
+        t0 = time.time()
+        out = solver.solve_prepared(preps, save_stages=True)
+        torch.cuda.synchronize()
+        solve_s = time.time() - t0
+        counts = K.launch_counts()
+    finally:
+        batch_solver.network_segmentation = segment
+    frames = BATCH * F_FRAMES
+    print(f"{tag} solve: {solve_s:.2f} s, {frames / solve_s:.3f} frames/s ({frames} frames)",
+          flush=True)
+    print(f"{tag} stage times (s): {out['stage_times_s']}", flush=True)
+    print(f"{tag} L-BFGS evaluations: {out['lbfgs_evals']}; per stage: "
+          f"{json.dumps(out['eval_stats'])}", flush=True)
+    print(f"{tag} launches per stage call: {per_call}", flush=True)
+    print(json.dumps({f"{tag}_launches": counts}), flush=True)
+    print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in STAGE_KEYS))}",
+          flush=True)
+    part_of = model.vertex_part_labels().cpu().numpy()
+    for q, ((labels, merged, chains), vids) in enumerate(zip(segs, generating_vertex_ids(model))):
+        truth = part_of[vids]
+        mode = np.apply_along_axis(lambda c: np.bincount(c).argmax(), 0, labels)
+        print(f"{tag} sequence {q}: label accuracy per frame "
+              f"{float((labels == truth[None]).mean()):.4f}, per-marker mode "
+              f"{float((mode == truth).mean()):.4f}, merged "
+              f"{float((merged == merge_symmetric_labels(truth)).mean()):.4f}; chains "
+              f"{[[int(j) for j in c] for c in chains]}; fit mask "
+              f"{int(np.isin(merged, chains[0]).sum())} of {len(merged)} markers; part-fit chain "
+              f"{[int(c) for c in out['results'][q]['chain']]}", flush=True)
+    require(len(segs) == BATCH, f"{tag}: {len(segs)} segmentations for {BATCH} sequences")
+    require_launches(counts, f"the {tag} solve")
+    errs = check_batch_results(model, out, gts, preps, tag)
+    mean_v, ref_mean = float(np.mean(errs)), float(np.mean(random_mpjpe))
+    print(f"{tag} MPJPE per sequence (mm): {[round(e, 3) for e in errs]}; mean {mean_v:.3f} "
+          f"(random batch, cluster mode: {ref_mean:.3f}; gates {MPJPE_GATE_MM} mm per sequence, "
+          f"mean <= {ref_mean + NETWORK_MEAN_MARGIN_MM:.3f} mm)", flush=True)
+    require(max(errs) <= MPJPE_GATE_MM, f"{tag} MPJPE max {max(errs):.2f} mm above "
+            f"{MPJPE_GATE_MM} mm")
+    require(mean_v <= ref_mean + NETWORK_MEAN_MARGIN_MM,
+            f"{tag} MPJPE mean {mean_v:.2f} mm above the random batch's {ref_mean:.2f} mm + "
+            f"{NETWORK_MEAN_MARGIN_MM} mm")
+    return counts
+
+
+def sdf_phase(model, random_chamfer_digest):
+    """The random batch through ``MultiSequenceSolver`` with the batch
+    phases' config and ``marker.use_sdf: true``: both marker stages
+    co-optimize the virtual markers through the SDF nets on a dense
+    forward.  Gates: the chamfer-stage snapshot's digest equal to the
+    random batch's (``random_chamfer_digest``: only the marker stages may
+    differ); outputs finite and of the reference's shapes; every sequence
+    <= SDF_GATE_MM and the mean <= SDF_MEAN_GATE_MM.  Prints the marker
+    stages' times, evaluations and peak device memory.  -> launch counts
+    of the solve."""
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.parallel.batch_solver import MultiSequenceSolver
+
+    tag = "sdf"
+    gts, preps = make_batch(model)
+    cfg = bench_parallel_config()
+    cfg["stages"]["marker"]["use_sdf"] = True
+    solver = MultiSequenceSolver(model, cfg, device="cuda")
+    peaks = []
+    run = solver.stages.marker_stage_sdf_lanes
+
+    def measured(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        result = run(*args, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks.append((round(time.time() - t0, 3), round(peak / 2**30, 3), round(base / 2**30, 3)))
+        return result
+
+    solver.stages.marker_stage_sdf_lanes = measured
+    K.reset_launch_counts()
+    t0 = time.time()
+    out = solver.solve_prepared(preps, save_stages=True)
+    torch.cuda.synchronize()
+    solve_s = time.time() - t0
+    counts = K.launch_counts()
+    frames = BATCH * F_FRAMES
+    print(f"{tag} solve: {solve_s:.2f} s, {frames / solve_s:.3f} frames/s ({frames} frames)",
+          flush=True)
+    print(f"{tag} stage times (s): {out['stage_times_s']}", flush=True)
+    print(f"{tag} L-BFGS evaluations: {out['lbfgs_evals']}; per stage: "
+          f"{json.dumps(out['eval_stats'])}", flush=True)
+    print(f"{tag} marker stage calls (s, peak GiB, GiB held before): {peaks}", flush=True)
+    print(json.dumps({f"{tag}_launches": counts}), flush=True)
+    chamfer_digest = stage_digest(out, "chamfer")
+    print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in STAGE_KEYS))}, "
+          f"chamfer-stage digest {chamfer_digest} (random batch {random_chamfer_digest})",
+          flush=True)
+    require(chamfer_digest == random_chamfer_digest,
+            f"{tag}: the chamfer-stage snapshot differs from the random batch's")
+    require(len(peaks) == 2, f"{tag}: {len(peaks)} SDF marker stage calls, expected 2")
+    require_launches(counts, f"the {tag} solve")
+    errs = check_batch_results(model, out, gts, preps, tag)
+    per_stage = {}
+    for r, gt in zip(out["results"], gts):
+        for stage, sd in r["stages"].items():
+            sd = dict(sd, betas=sd["betas"][None].repeat(F_FRAMES, 0))
+            per_stage.setdefault(stage, []).append(round(mpjpe_mm(model, sd, gt), 3))
+    mean_v = float(np.mean(errs))
+    print(f"{tag} MPJPE per sequence (mm): {[round(e, 3) for e in errs]}, mean {mean_v:.3f}; "
+          f"per stage {per_stage} (gates {SDF_GATE_MM} mm per sequence, mean "
+          f"{SDF_MEAN_GATE_MM} mm)", flush=True)
+    require(max(errs) <= SDF_GATE_MM, f"{tag} MPJPE max {max(errs):.2f} mm above {SDF_GATE_MM} mm")
+    require(mean_v <= SDF_MEAN_GATE_MM,
+            f"{tag} MPJPE mean {mean_v:.2f} mm above {SDF_MEAN_GATE_MM} mm")
     return counts
 
 
@@ -883,7 +1157,8 @@ def cli_phase():
 
     # a child of the shipped config with the batch phases' parallel settings
     config = "\n".join([f"parent: {os.path.join(HERE, 'configs', 'video_mocap.yaml')}",
-                        *yaml_lines({"parallel": bench_parallel_config()["parallel"]})]) + "\n"
+                        *yaml_lines({k: bench_parallel_config()[k]
+                                     for k in ("parallel", "checkpoints_dir")})]) + "\n"
     runs = (("cli_batch", [f"seq_{i:03d}" for i in range(BATCH)], F_FRAMES, 0, ["--batch", str(BATCH)]),
             ("cli_seq", ["seq_000"], 150, 10, []))
     try:
@@ -992,11 +1267,17 @@ def main() -> int:
     gt, markers, prior = make_sequence(model)
 
     kres = kernel_phase(model, gt, markers)
-    batch_phase(model)  # the main path
+    random = batch_phase(model)  # the main path
     batch_phase(model, "cmu_41")
     t0 = time.time()
     launches = full_surface_phase(model)  # every kernel; the counts of the kernels line
     print(f"full_surface phase: {time.time() - t0:.1f} s", flush=True)
+    for name, phase, args in (("model", model_phase, ()),
+                              ("network", network_phase, (random["mpjpe"],)),
+                              ("sdf", sdf_phase, (random["chamfer_digest"],))):
+        t0 = time.time()
+        phase(model, *args)
+        print(f"{name} phase: {time.time() - t0:.1f} s", flush=True)
     path_phase(model, gt, markers, prior)
     cli_phase()
     print(f"chip_smoke total: {time.time() - t_start:.1f} s", flush=True)

@@ -283,10 +283,10 @@ def test_batch_solver_device_rule_and_unported_options(model):
         MultiSequenceSolver(model, cfg, mesh=object(), device="cpu")
     solver = MultiSequenceSolver(model, copy.deepcopy(cfg), device="cpu")
     assert solver.stages._chamfer_solver.max_width == 16
-    cfg_sdf = copy.deepcopy(cfg)
-    cfg_sdf["stages"]["marker"]["use_sdf"] = True
+    cfg_rank = copy.deepcopy(cfg)
+    cfg_rank["parallel"] = {"hypothesis_prune": {"enabled": True, "rank_phase1": True}}
     with pytest.raises(NotImplementedError):
-        MultiSequenceSolver(model, cfg_sdf, device="cpu").solve_prepared([])
+        MultiSequenceSolver(model, cfg_rank, device="cpu").solve_prepared([])
 
 
 def test_prepare_sequence_padding_matches_jax():

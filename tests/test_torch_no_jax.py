@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``uuo_mocap_tpu_torch``
-(and ``chip_smoke.py``) loads neither ``jax``, ``uuo_mocap_tpu`` nor
-``joblib`` (absent on the GPU machine), and its entry points refuse to run
-on the CPU unless asked to."""
+(and ``chip_smoke.py``) loads none of ``jax``, ``uuo_mocap_tpu``, ``joblib``,
+``flax`` and ``msgpack`` (absent on the GPU machine), and its entry points
+refuse to run on the CPU unless asked to."""
 import glob
 import os
 import re
@@ -21,7 +21,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "uuo_mocap_tpu", "joblib"))
+             if k.split(".")[0] in ("jax", "uuo_mocap_tpu", "joblib", "flax", "msgpack"))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
@@ -34,7 +34,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) >= 20  # every module was imported
     # imports inside functions too (the probe sees only those that run on import)
-    banned = re.compile(r"^\s*(from|import)\s+(jax|joblib|uuo_mocap_tpu)\b", re.M)
+    banned = re.compile(r"^\s*(from|import)\s+(jax|joblib|flax|msgpack|uuo_mocap_tpu)\b", re.M)
     sources = glob.glob(os.path.join(REPO, "uuo_mocap_tpu_torch", "**", "*.py"), recursive=True)
     offenders = [p for p in sources + [os.path.join(REPO, "chip_smoke.py")]
                  if banned.search(open(p).read())]

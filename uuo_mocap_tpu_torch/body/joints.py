@@ -32,6 +32,13 @@ SMPL_LIMBS: Dict[str, List[int]] = {
 }
 
 
+# (left, right) joint pairs, merged by network-mode segmentation
+SMPL_JOINT_SYMMETRY: List[List[int]] = [
+    [get_joint_id("left_" + n), get_joint_id("right_" + n)]
+    for n in ("hip", "knee", "ankle", "foot", "collar", "shoulder", "elbow", "wrist", "hand")
+]
+
+
 def get_sub_hierarchies(parents: Sequence[int], num_bones: int) -> List[List[int]]:
     """All connected subtrees of the kinematic tree with exactly
     ``num_bones`` nodes, each rooted at some node."""

@@ -1,0 +1,34 @@
+"""Model checkpoints (counterpart of ``uuo_mocap_tpu/models/checkpoints.py``).
+
+Checkpoints are the flax msgpack files ``<root>/<name>/final/model.msgpack``
+that the JAX package's training tools write; the port reads them with its
+own decoder (``models/msgpack_io.py``) and builds its modules from the
+params tree (``convert.py``).
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import numpy as np
+
+from uuo_mocap_tpu_torch.models.msgpack_io import unpackb
+
+
+def checkpoint_path(root: str, name: str) -> str:
+    return os.path.join(root, name, "final", "model.msgpack")
+
+
+def _as_float32(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _as_float32(v) for k, v in tree.items()}
+    return np.asarray(tree, np.float32)
+
+
+def load_params(root: str, name: str) -> Dict[str, Any]:
+    """The checkpoint's variables tree ({"params": {...}}) as nested dicts of
+    float32 numpy arrays: leaves stored downcast (the Pos2BC checkpoint is
+    float16) are cast back, as the reference casts them to its float32
+    template.  A missing file raises ``FileNotFoundError``."""
+    with open(checkpoint_path(root, name), "rb") as f:
+        return _as_float32(unpackb(f.read()))

@@ -32,9 +32,8 @@ single-sequence solve writes them; the reference's batch solve writes no
 ``root`` entry and files the root stage's result under ``part``.
 
 Not ported yet (they raise ``NotImplementedError``): a ``mesh`` (the
-vertex-sharded model axis), network-mode segmentation, the reprojection
-stages, SDF markers, and the rank-per-iteration phase-1 solver
-(``hypothesis_prune.rank_phase1``).
+vertex-sharded model axis), the reprojection stages and the
+rank-per-iteration phase-1 solver (``hypothesis_prune.rank_phase1``).
 """
 from __future__ import annotations
 
@@ -51,7 +50,7 @@ from uuo_mocap_tpu_torch.ops import rotations as rot
 from uuo_mocap_tpu_torch.ops.geometry import (
     get_aabb, get_aabb_volume, get_marker_mask, median, upsample_frames)
 from uuo_mocap_tpu_torch.pipeline.multimodal import (
-    PreparedSequence, _mode_per_column, _numpy, _params_to_stage_dict)
+    PreparedSequence, _mode_per_column, _numpy, _params_to_stage_dict, network_segmentation)
 from uuo_mocap_tpu_torch.pipeline.part_fit import PartFitter, _prune_rounds
 from uuo_mocap_tpu_torch.pipeline.segmentation import filter_rigid, segment_rigid
 from uuo_mocap_tpu_torch.pipeline.stages import SmplParams, SolveStages, _forward
@@ -113,8 +112,11 @@ class MultiSequenceSolver:
         pcfg = config.get("parallel") or {}
         self.lane_width = int(pcfg.get("lane_width", 16))
         self._pad_width = bool(pcfg.get("pad_width", False))
-        for solver in (self.stages._chamfer_solver, self.stages._marker_solver,
-                       self.stages._root_solver):
+        self.use_sdf = bool(config["stages"]["marker"].get("use_sdf"))
+        # the marker stage's solver: under use_sdf the SDF nets load here
+        self.marker_solver = (self.stages._marker_solver_sdf if self.use_sdf
+                              else self.stages._marker_solver)
+        for solver in (self.stages._chamfer_solver, self.marker_solver, self.stages._root_solver):
             self._configure_solver(solver)
         self.prune_cfg = dict(pcfg.get("hypothesis_prune") or {})
         part_w = int(pcfg.get("part_lane_width", 16))
@@ -147,10 +149,6 @@ class MultiSequenceSolver:
                 "least one sequence (synthetic ImgSmpl priors carry no camera data)")
         if do_reproj:
             raise NotImplementedError("the reprojection stages are not ported yet (a later slice)")
-        if cfg["stages"]["part"].get("mode", "cluster") == "network":
-            raise NotImplementedError("network-mode segmentation is not ported yet (a later slice)")
-        if cfg["stages"]["marker"].get("use_sdf"):
-            self.stages.marker_stage_sdf_lanes()
         if self.prune_cfg.get("enabled") and self.prune_cfg.get("rank_phase1"):
             self.stages._chamfer_solver_frozen  # noqa: B018 — raises
 
@@ -215,15 +213,29 @@ class MultiSequenceSolver:
         o_betas_b, o_fc_b = stack("o_betas"), stack("o_foot_contacts")
         total_evals = 0
 
-        # ---- rigid segmentation per sequence (host, real frames only)
-        log(f"Batch[{Q}]: rigid segmentation...")
+        # ---- segmentation per sequence, on its real frames: rigid clustering
+        #      on the host, or the learned segmenter, whose largest chain
+        #      restricts that sequence's part fit
         marker_labels_b = np.zeros((Q, F, M), np.int64)
-        with timed("segment_rigid"):
-            groups_per_seq = [segment_rigid(np.asarray(p.markers[: p.F_real])) for p in preps]
-        for q, groups in enumerate(groups_per_seq):
-            for gi, group in enumerate(groups):
-                marker_labels_b[q, :, group] = gi
-        num_fit_groups = [len(g) for g in groups_per_seq]
+        fit_mask_b = None  # [Q, M], network mode
+        if cfg["stages"]["part"].get("mode", "cluster") == "network":
+            log(f"Batch[{Q}]: network segmentation...")
+            fit_mask_b = np.zeros((Q, M), np.float32)
+            num_fit_groups = []
+            with timed("segment_network"):
+                for q, p in enumerate(preps):
+                    marker_labels_b[q], merged, chains_q = network_segmentation(
+                        model, p, cfg.get("checkpoints_dir", "./checkpoints"))
+                    num_fit_groups.append(len(chains_q[0]))
+                    fit_mask_b[q] = np.isin(merged, chains_q[0])
+        else:
+            log(f"Batch[{Q}]: rigid segmentation...")
+            with timed("segment_rigid"):
+                groups_per_seq = [segment_rigid(np.asarray(p.markers[: p.F_real])) for p in preps]
+            for q, groups in enumerate(groups_per_seq):
+                for gi, group in enumerate(groups):
+                    marker_labels_b[q, :, group] = gi
+            num_fit_groups = [len(g) for g in groups_per_seq]
 
         # ---- AABB part-vs-full heuristic per sequence, real frames only
         with timed("aabb"), torch.no_grad():
@@ -243,11 +255,14 @@ class MultiSequenceSolver:
         chains: List[Optional[np.ndarray]] = [None] * Q
         if cfg["find_best_part_fits"]:
             log(f"Batch[{Q}]: part fit (lanes = sequence x subtree)...")
+            fit_weights = torch.ones_like(weights_b) * frame_valid_b[:, :, None]
+            if fit_mask_b is not None:  # network mode: only the chain's markers
+                fit_weights = fit_weights * torch.as_tensor(fit_mask_b, device=dev)[:, None, :]
             with timed("part_fit"):
                 part_results = self.part_fitter.fit_batch(
-                    markers_b, torch.ones_like(weights_b) * frame_valid_b[:, :, None],
-                    o_pose_b, o_betas_b, o_root_b, num_rigid_groups=num_fit_groups,
-                    foot_contacts_b=o_fc_b, frame_valid_b=frame_valid_b)
+                    markers_b, fit_weights, o_pose_b, o_betas_b, o_root_b,
+                    num_rigid_groups=num_fit_groups, foot_contacts_b=o_fc_b,
+                    frame_valid_b=frame_valid_b)
             total_evals += sum(r.lbfgs_evals for r in part_results)
             grab_stats("part_fit", self.part_fitter._solver)
             marker_labels_b = np.stack([_numpy(r.marker_labels) for r in part_results])
@@ -374,6 +389,7 @@ class MultiSequenceSolver:
             chamfer_all = SmplParams(pose0_l, betas0_l, root0_l, trans0_l)
 
         part_gran = cfg["stages"]["segment"]["granularity"] == "part"
+        marker_lanes = stages.marker_stage_sdf_lanes if self.use_sdf else stages.marker_stage_lanes
         if do_marker:
             with timed("nearest"):
                 attach_all = (chunked_lanes(stages.nearest_points_lanes, W, markers_l,
@@ -381,10 +397,10 @@ class MultiSequenceSolver:
                               else chunked_lanes(stages.nearest_points_lanes_nolabel, W,
                                                  markers_l, chamfer_all, img_mask_l))
             with timed("marker"):
-                marker_all, res_m = stages.marker_stage_lanes(
+                marker_all, res_m = marker_lanes(
                     markers_l, weights_l, o_pose_l, o_betas_l, chamfer_all, attach_all, fv_l)
             total_evals += int(res_m.num_evals.sum())
-            grab_stats("marker", stages._marker_solver)
+            grab_stats("marker", self.marker_solver)
         else:
             marker_all = chamfer_all
 
@@ -419,11 +435,11 @@ class MultiSequenceSolver:
                         labels_np.append(lab)
                     marker_labels_out = np.stack(labels_np)
                 with timed("marker_final"):
-                    params_q, res_f = stages.marker_stage_lanes(
+                    params_q, res_f = marker_lanes(
                         markers_b, weights_b, params_q.pose_body, o_betas_b, params_q, attach_q,
                         frame_valid_b)
                 total_evals += int(res_f.num_evals.sum())
-                grab_stats("marker_final", stages._marker_solver)
+                grab_stats("marker_final", self.marker_solver)
 
         # ---- per-sequence output assembly
         t_asm = time.time()

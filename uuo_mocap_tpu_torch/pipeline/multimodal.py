@@ -1,11 +1,12 @@
 """The staged multimodal solver, single-sequence path (counterpart of
 ``uuo_mocap_tpu/pipeline/multimodal.py``).
 
-Cluster mode: rigid segmentation (host) -> AABB heuristic -> part fit ->
+Segmentation (rigid clustering on the host, or in network mode the
+learned segmenter on the solve's device) -> AABB heuristic -> part fit ->
 root stage -> chamfer stage over A yaw hypotheses -> nearest points ->
-marker IK -> ``stage_repeats`` x (nearest points + marker IK) -> output
-dict with the reference's keys and shapes (numpy).  Network segmentation,
-the reprojection stages, SDF markers and the iteration journal raise
+marker IK (or its ``use_sdf`` form) -> ``stage_repeats`` x (nearest points
++ marker IK) -> output dict with the reference's keys and shapes (numpy).
+The reprojection stages and the iteration journal raise
 ``NotImplementedError``: later slices.
 """
 from __future__ import annotations
@@ -22,7 +23,9 @@ from uuo_mocap_tpu_torch.device import resolve_device
 from uuo_mocap_tpu_torch.ops import rotations as rot
 from uuo_mocap_tpu_torch.ops.geometry import get_aabb, get_aabb_volume, get_marker_mask, median
 from uuo_mocap_tpu_torch.pipeline.part_fit import PartFitter
-from uuo_mocap_tpu_torch.pipeline.segmentation import filter_rigid, segment_rigid
+from uuo_mocap_tpu_torch.pipeline.segmentation import (
+    chains_from_labels, filter_rigid, merge_symmetric_labels, segment_markers_network,
+    segment_rigid)
 from uuo_mocap_tpu_torch.pipeline.stages import SmplParams, SolveStages, _forward
 
 
@@ -162,6 +165,33 @@ def _mode_per_column(labels: np.ndarray) -> np.ndarray:
     return np.apply_along_axis(lambda c: np.bincount(c).argmax(), 0, labels)
 
 
+def network_segmentation(model: BodyModel, prep: PreparedSequence, checkpoint_root: str):
+    """Network-mode segmentation of one sequence (``multimodal.py:333-366``)
+    on its real frames: the segmenter's per-frame labels on the model's
+    device, with the prior's 22 joints as its video stream; their
+    per-marker mode with the right side merged into the left; the chains of
+    the merged labels.  The reference feeds the frame-bucket padding (frames
+    of zero markers) to the segmenter too, which changes the labels
+    (ROADMAP C.9); here the padded frames take each marker's mode, so an
+    unpadded sequence gives the reference's labels.
+    -> (labels [F, M], merged [M], chains, largest first)."""
+    Fr, dev = prep.F_real, model.device
+
+    def on_dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    prior = SmplParams(on_dev(prep.o_pose_body[:Fr]), on_dev(prep.o_betas),
+                       on_dev(prep.o_root_orient[:Fr]), on_dev(prep.o_trans[:Fr]))
+    with torch.no_grad():
+        joints = _forward(model, prior)["joints"][:, :22]
+    real = segment_markers_network(prep.markers[:Fr], prep.mocap_freq,
+                                   checkpoint_root=checkpoint_root, joints=joints, device=dev)
+    mode = _mode_per_column(real)
+    labels = np.concatenate([real, np.broadcast_to(mode, (prep.F - Fr, mode.shape[0]))])
+    merged = merge_symmetric_labels(mode)
+    return labels, merged, chains_from_labels(merged, model.parents)
+
+
 def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], model: BodyModel,
                            offset: Optional[int] = None, print_options: List[str] = (),
                            save_stages: bool = False, iter_journal=None,
@@ -174,8 +204,6 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
         raise ValueError(f"model is on {model.device}, the solve runs on {dev}")
     if iter_journal is not None:
         raise NotImplementedError("the iteration journal is not ported yet (a later slice)")
-    if config["stages"]["part"].get("mode", "cluster") == "network":
-        raise NotImplementedError("network-mode segmentation is not ported yet (a later slice)")
     t_start = time.time()
     progress = "progress" in print_options
 
@@ -217,13 +245,24 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
     output: Dict[str, Any] = {"stages": {}} if save_stages else {}
     total_evals = 0
 
-    # ---- rigid segmentation on the host (real frames only)
+    # ---- segmentation: rigid clustering on the host (real frames only), or
+    #      the learned segmenter, whose largest chain restricts the part fit
     log("Stage: computing marker segmentation...")
-    with timed("segment_rigid"):
-        groups = segment_rigid(markers_np[:F_real])
-    marker_labels = np.zeros(markers_np.shape[:2], np.int64)
-    for gi, group in enumerate(groups):
-        marker_labels[:, group] = gi
+    fit_marker_mask = None
+    if config["stages"]["part"].get("mode", "cluster") == "network":
+        with timed("segment_network"):
+            marker_labels, merged, chains = network_segmentation(
+                model, prep, config.get("checkpoints_dir", "./checkpoints"))
+        log(f"  network chains: {[len(c) for c in chains]}; fitting chain {chains[0]}")
+        num_fit_groups = len(chains[0])
+        fit_marker_mask = on_dev(np.isin(merged, chains[0]))  # [M]
+    else:
+        with timed("segment_rigid"):
+            groups = segment_rigid(markers_np[:F_real])
+        marker_labels = np.zeros(markers_np.shape[:2], np.int64)
+        for gi, group in enumerate(groups):
+            marker_labels[:, group] = gi
+        num_fit_groups = len(groups)
 
     # ---- AABB part-vs-full heuristic
     with torch.no_grad():
@@ -241,10 +280,12 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
     if config["find_best_part_fits"]:
         log("Stage [part]: fitting kinematic subtrees...")
         fit_weights = torch.ones_like(weights) * frame_valid[:, None]
+        if fit_marker_mask is not None:  # network mode: only the chain's markers
+            fit_weights = fit_weights * fit_marker_mask[None, :]
         with timed("part_fit"):
             part_result = part_fitter(markers=markers, marker_weights=fit_weights,
                                       o_pose_body=o_pose_body, o_betas=o_betas,
-                                      root_orient0=o_root_orient, num_rigid_groups=len(groups),
+                                      root_orient0=o_root_orient, num_rigid_groups=num_fit_groups,
                                       foot_contacts=o_foot_contacts, frame_valid=frame_valid)
         marker_labels = _numpy(part_result.marker_labels)
         total_evals += part_result.lbfgs_evals

@@ -1,7 +1,9 @@
 """Marker segmentation and cleanup on the host (counterpart of
 ``uuo_mocap_tpu/pipeline/segmentation.py``: ``segment_rigid``,
 ``filter_rigid``, ``cleanup_markers``, ``trim_trailing_zero_frames``,
-``id_markers``, ``shuffle_markers``; numpy and scipy).
+``id_markers``, ``shuffle_markers``; numpy and scipy), and network-mode
+segmentation: the learned segmenter's labels (on the solve's device), their
+per-marker mode, the left/right merge and the kinematic chains.
 
 The reference clusters with scikit-learn's ``AgglomerativeClustering``;
 this port uses ``scipy.cluster.hierarchy`` (average linkage, cut at the same
@@ -9,9 +11,14 @@ distance threshold), which gives the same partition without scikit-learn.
 """
 from __future__ import annotations
 
+import os
 from typing import List
 
 import numpy as np
+import torch
+
+SEGMENTER_CHECKPOINT = "marker_segmenter"
+MULTIMODAL_CHECKPOINT = "marker_segmenter_multimodal"
 
 
 def segment_rigid(points: np.ndarray, distance_threshold: float = 0.005) -> List[List[int]]:
@@ -80,3 +87,77 @@ def shuffle_markers(points: np.ndarray, rng: np.random.RandomState | None = None
     for f in range(points.shape[0]):
         output[f] = points[f, rng.permutation(points.shape[1])]
     return output
+
+
+def labels_mode(marker_labels: np.ndarray) -> np.ndarray:
+    """Per-marker temporal mode of [F, M] labels (the least label among
+    ties)."""
+    from scipy import stats
+
+    return stats.mode(marker_labels, axis=0, keepdims=False).mode
+
+
+def segment_markers_network(points: np.ndarray, freq: float,
+                            checkpoint_root: str = "./checkpoints",
+                            joints=None, device=None) -> np.ndarray:
+    """Per-frame part labels [F, M] from the learned segmenter: the
+    multimodal net when ``joints`` (the prior's [F, 22, 3] joint stream) is
+    given and its checkpoint exists, else the marker-only net (windows of
+    32 frames at stride 4 x max(freq // 30, 1), softmax over the 24 parts,
+    argmax).  Runs on ``device`` (default: the card).  A missing
+    checkpoint raises ``FileNotFoundError``."""
+    from uuo_mocap_tpu_torch.convert import (
+        marker_segmenter_from_flax, marker_segmenter_multimodal_from_flax)
+    from uuo_mocap_tpu_torch.device import resolve_device
+    from uuo_mocap_tpu_torch.models.checkpoints import checkpoint_path, load_params
+
+    multimodal = joints is not None and os.path.exists(
+        checkpoint_path(checkpoint_root, MULTIMODAL_CHECKPOINT))
+    name = MULTIMODAL_CHECKPOINT if multimodal else SEGMENTER_CHECKPOINT
+    path = checkpoint_path(checkpoint_root, name)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no segmenter checkpoint at {path}; the repository ships them under checkpoints/ "
+            "(set the config's checkpoints_dir)")
+    dev = resolve_device(device)
+    pts = torch.as_tensor(np.nan_to_num(np.asarray(points, np.float32), nan=0.0), device=dev)
+    with torch.no_grad():
+        if multimodal:
+            net = marker_segmenter_multimodal_from_flax(load_params(checkpoint_root, name), dev)
+            probs = net.forward_sequence(
+                pts, torch.as_tensor(joints, dtype=torch.float32, device=dev), freq=freq)
+        else:
+            net = marker_segmenter_from_flax(load_params(checkpoint_root, name), dev)
+            probs = net.forward_sequence(pts, freq=freq)
+        return probs.argmax(dim=-1).cpu().numpy()
+
+
+def merge_symmetric_labels(labels_mode_arr: np.ndarray) -> np.ndarray:
+    """Right-side labels merged into their left counterparts (the
+    multi-hypothesis solve resolves the side later)."""
+    from uuo_mocap_tpu_torch.body.joints import SMPL_JOINT_SYMMETRY
+
+    out = np.array(labels_mode_arr)
+    for left, right in SMPL_JOINT_SYMMETRY:
+        out[out == right] = left
+    return out
+
+
+def chains_from_labels(labels_merged: np.ndarray, parents: np.ndarray) -> List[List[int]]:
+    """The present part labels grouped into connected kinematic chains (in
+    increasing label order, a part joins the first chain holding its
+    parent), sorted by (parts, markers) with the largest first."""
+    present = sorted(set(int(label) for label in labels_merged))
+    chains: List[List[int]] = []
+    for j in present:
+        for chain in chains:
+            if int(parents[j]) in chain:
+                chain.append(j)
+                break
+        else:
+            chains.append([j])
+
+    def chain_score(chain):
+        return (len(chain), sum(int((labels_merged == j).sum()) for j in chain))
+
+    return sorted(chains, key=chain_score, reverse=True)

@@ -13,7 +13,10 @@ and its gradient from the gathered forward at the ranked vertices
 (``stages.py:191-221``).  A chamfer stage with a dense term
 (``part_chamfer``, ``ground``, or bidirectional) and the root stage run the
 dense forward with gradients instead, through ``min_sqdist`` (the forward
-kernel both ways and the backward kernel on CUDA).
+kernel both ways and the backward kernel on CUDA).  With ``marker.use_sdf``
+the marker stage co-optimizes virtual marker positions on the template,
+which the learned SDF nets (``models/sdf.py``) turn into soft vertex
+assignments on every evaluation of a dense forward.
 """
 from __future__ import annotations
 
@@ -47,6 +50,18 @@ class MarkerAttachment(NamedTuple):
 
     vertex_ids: torch.Tensor  # [M, 3] int64
     weights: torch.Tensor  # [M, 3]
+
+    def to_one_hot(self, num_vertices: int) -> torch.Tensor:
+        """Dense [..., M, V] barycentric one-hot.  The three weights of a
+        marker are added one at a time, in a fixed order: a marker's
+        corners may repeat (a vertex attachment is (v, v, v)), and an
+        accumulating scatter over all of them at once adds in no fixed
+        order on CUDA."""
+        ids, w = self.vertex_ids.long(), self.weights
+        oh = torch.zeros(w.shape[:-1] + (num_vertices,), dtype=w.dtype, device=w.device)
+        for k in range(ids.shape[-1]):
+            oh.scatter_add_(-1, ids[..., k:k + 1], w[..., k:k + 1])
+        return oh
 
 
 def _stage_opts(config: Dict[str, Any], stage: str, lr_default: float = 1.0,
@@ -437,14 +452,71 @@ class SolveStages:
 
         return BatchedLbfgs(fun, _stage_opts(cfg, "marker"))
 
+    @functools.cached_property
+    def _sdf(self):
+        """The SDF nets, loaded from the config's ``checkpoints_dir``."""
+        from uuo_mocap_tpu_torch.models.sdf import SDF
+
+        return SDF(self.model, checkpoint_root=self.config.get("checkpoints_dir", "./checkpoints"))
+
+    @functools.cached_property
+    def _marker_solver_sdf(self) -> BatchedLbfgs:
+        """The ``use_sdf`` marker IK (``stages.py:634-662``): the virtual
+        marker positions on the template are parameters too; every
+        evaluation maps them through the SDF nets to a soft assignment
+        [L, M, V] and reads the virtual markers off the dense forward.  The
+        reference's closure has no ``temporal`` term."""
+        cfg = self.config
+        losses = cfg["stages"]["marker"]["losses"]
+        _require(losses, _MARKER_LOSSES, "marker")
+        model, sdf = self.model, self._sdf
+
+        def fun(p, lane, shared):
+            d = _data(lane, shared)
+            pose = rot.rotation_6d_to_matrix(p["pose6d"])
+            root = rot.rotation_6d_to_matrix(p["root6d"])
+            out = _forward(model, SmplParams(pose, p["betas"], root, p["trans"]))
+            bc = sdf.points_to_barycentric_one_hot(p["virtual_points"])  # [L, M, V]
+            virtual = torch.einsum("lmv,lfvd->lfmd", bc, out["vertices"])
+            total = torch.zeros(pose.shape[0], dtype=pose.dtype, device=pose.device)
+            if "marker" in losses:
+                total = total + losses["marker"] * L.marker_loss(d["markers"], virtual, d["weights"])
+            if "reg_pose_body" in losses:
+                total = total + losses["reg_pose_body"] * L.mse(pose, d["o_pose_body"])
+            if "reg_betas" in losses:
+                total = total + losses["reg_betas"] * L.mse(p["betas"], d["o_betas"])
+            return total
+
+        return BatchedLbfgs(fun, _stage_opts(cfg, "marker"))
+
+    def _seed_virtual(self, attachments: MarkerAttachment) -> torch.Tensor:
+        """Attachments [L, M, 3] -> the virtual points' seeds on the
+        template [L, M, 3] (``stages.py:664-675``)."""
+        one_hot = attachments.to_one_hot(self.model.num_vertices)
+        return self._sdf.barycentric_one_hot_to_points(one_hot)
+
+    def marker_stage_sdf(self, markers, weights, o_pose_body, o_betas,
+                         params_batch: SmplParams, attachments: MarkerAttachment,
+                         frame_valid=None):
+        """SDF-mode marker IK for all A hypotheses (``stages.py:677-695``):
+        virtual points seeded from the attachments on the template and
+        optimized with the body parameters."""
+        params0 = dict(self._to6d(params_batch), virtual_points=self._seed_virtual(attachments))
+        shared = {"markers": markers, "weights": weights, "o_pose_body": o_pose_body,
+                  "o_betas": o_betas}
+        p_opt, res = self._marker_solver_sdf.run(params0, {}, shared)
+        return self._post_marker(p_opt), res
+
     def marker_stage_batched(self, markers, weights, o_pose_body, o_betas,
                              params_batch: SmplParams, attachments: MarkerAttachment,
                              frame_valid=None):
         """Marker IK for all A hypotheses: optimize {pose, betas, root, trans}
         against per-lane virtual markers.  params_batch and attachments carry
-        a leading A axis."""
+        a leading A axis.  Dispatches to ``marker_stage_sdf`` under
+        ``marker.use_sdf``."""
         if self.config["stages"]["marker"].get("use_sdf"):
-            raise NotImplementedError("marker.use_sdf is not ported yet (a later slice)")
+            return self.marker_stage_sdf(markers, weights, o_pose_body, o_betas, params_batch,
+                                         attachments, frame_valid=frame_valid)
         params0 = self._to6d(params_batch)
         lane = {"att_ids": attachments.vertex_ids, "att_w": attachments.weights}
         F = markers.shape[0]
@@ -473,8 +545,16 @@ class SolveStages:
         p_opt, res = self._root_solver.run(params0, lane, {})
         return self._post_root(p_opt, root0_l, o_pose_l), res
 
-    def marker_stage_sdf_lanes(self, *args, **kw):
-        raise NotImplementedError("marker.use_sdf is not ported yet (a later slice)")
+    def marker_stage_sdf_lanes(self, markers_l, weights_l, o_pose_l, o_betas_l,
+                               params_l: SmplParams, attachments_l: MarkerAttachment,
+                               frame_valid_l):
+        """Per-lane SDF-mode marker IK (``stages.py:799-817``), signature-
+        compatible with ``marker_stage_lanes``."""
+        params0 = dict(self._to6d(params_l), virtual_points=self._seed_virtual(attachments_l))
+        lane = {"markers": markers_l, "weights": weights_l, "o_pose_body": o_pose_l,
+                "o_betas": o_betas_l}
+        p_opt, res = self._marker_solver_sdf.run(params0, lane, {})
+        return self._post_marker(p_opt), res
 
     @property
     def _chamfer_solver_frozen(self):
@@ -499,9 +579,8 @@ class SolveStages:
 
     def marker_stage_lanes(self, markers_l, weights_l, o_pose_l, o_betas_l, params_l: SmplParams,
                            attachments_l: MarkerAttachment, frame_valid_l):
-        """Per-lane marker IK (multi-sequence form of ``marker_stage_batched``)."""
-        if self.config["stages"]["marker"].get("use_sdf"):
-            return self.marker_stage_sdf_lanes()
+        """Per-lane marker IK (multi-sequence form of ``marker_stage_batched``
+        without its ``use_sdf`` dispatch, which the batch solve makes)."""
         lane = {"att_ids": attachments_l.vertex_ids, "att_w": attachments_l.weights,
                 "markers": markers_l, "weights": weights_l, "o_pose_body": o_pose_l,
                 "o_betas": o_betas_l, "frame_valid": frame_valid_l}
