@@ -69,7 +69,31 @@
    every sequence <= 60 mm and the mean <= 45 mm (provisional, from the
    JAX package's TPU record).  Prints the marker stages' times, evaluations
    and peak device memory.
-9. Single-sequence phase: one synthetic 450 x 41 sequence solved through
+9. Reprojection phase: the random batch with the camera streams
+   ``tests/test_batch_reprojection_network.py`` gives a synthetic prior
+   (REPROJ_CAMERA, 0.2 m from the body), both reprojection stages on at
+   REPROJ_ITERS iterations over REPROJ_ANGLES yaw seeds (lanes = sequence x
+   seed; the chamfer term runs the few-query forward and the backward
+   kernel).  Gates: outputs finite, of the reference's shapes; both stages
+   timed and each launched both kernels; every sequence <= 35 mm.  Prints
+   per sequence the per-seed metrics, the chosen seed, the iterations and
+   evaluations, and a digest.  At 0.2 m most lanes stop after 2 iterations
+   (ROADMAP C.12), so the stage then runs alone on the batch with the
+   camera of ``tests/test_torch_reprojection.py`` (REPROJ_STAGE_CAMERA,
+   4.9 m), where it descends.  Gates there: finite, both kernels launched,
+   the median lane at least REPROJ_MIN_MEDIAN_ITERS iterations, every lane
+   below its starting loss.
+10. Ranking-variant phase: the random batch with ``optimizer.rank_hier`` and
+   ``hypothesis_prune.rank_phase1`` (phase 1 of the tournament ranks once
+   per iteration through the rank kernel; phase 2 and the rest of the
+   chamfer stage rank coarse to fine, ``ops/rank_hier.py``).  Gates:
+   outputs finite, of the reference's shapes; every phase-1 call launched
+   the rank kernel; per sequence <= 60 mm and the mean <= 3.'s + 5 mm
+   (provisional).  Prints the evaluations beside 3.'s, and the coarse-to-fine
+   ranking against the rank kernel at the first cull's shape: the share of
+   equal picks, the largest squared-distance gap where they differ, both
+   times.
+11. Single-sequence phase: one synthetic 450 x 41 sequence solved through
    ``multimodal_video_mocap(device="cuda")`` on the shipped
    ``configs/video_mocap.yaml`` (4 yaw hypotheses), with every launch count
    reset just before and read just after (the forward counts its few-query
@@ -79,8 +103,11 @@
    same stage with ``single_directional: false`` and the dense branch's
    ``part_chamfer`` and ``ground`` terms, the path that differentiates
    min_sqdist and so launches the backward kernel) runs a few iterations.
-10. CLI phase: the user's entry points in a temporary directory (export,
-   ``cli.test --batch 4`` and sequential, ``eval.comparisons``).
+12. CLI phase: the user's entry points in a temporary directory (export,
+   ``cli.test --batch 4`` and sequential on 80 frames, ``eval.comparisons``); the
+   sequential run saves its iteration journal (``--save_iterations``),
+   which must load with ``pickle`` alone and hold every stage, its L-BFGS
+   segments at multiples of 50 iterations or a lane's last.
 
 The kernel phase also holds the forward at the root stage's part-chamfer
 shapes (4 sequences x 450 frames: the largest and the smallest part with
@@ -94,7 +121,7 @@ Prints each solve's launch counts as a ``{"<phase>_launches": {...}}`` line,
 then a ``{"kernels": [...]}`` line (launches from the full-surface phase,
 which runs every kernel), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Imports
-nothing of JAX.  On one H100 (700 W) the whole run took 615-729 s, the
+nothing of JAX.  On one H100 (700 W) the whole run took 820-837 s, the
 kernel build included, the host setting the spread (allow it 1200 s).
 """
 from __future__ import annotations
@@ -166,6 +193,26 @@ NETWORK_MEAN_MARGIN_MM = 2.0
 # the SDF phase, provisional: per sequence <= 60 mm and the mean <= 45 mm
 # (the JAX package's TPU record of the SDF mode reads 38.48 mm on this batch)
 SDF_GATE_MM, SDF_MEAN_GATE_MM = 60.0, 45.0
+# the reprojection phase: the camera streams tests/test_batch_reprojection_network.py
+# gives a synthetic prior (the crop camera (1, 0, 0), bbox centre (320, 240),
+# scale 200, image size (480, 640) in every frame; the 2D targets are the
+# prior's own projection through it, so constant streams are a coherent
+# camera), and a depth a user would give the stages (no shipped config turns
+# them on; the JAX tests run 8-10 iterations over 2 seeds).  That camera is
+# 2 x 5000 / (s x 51200 crop pixels) = 0.2 m from the body, where the
+# objective is so steep that most lanes stop after 2 iterations (ROADMAP
+# C.12); so the phase also runs the stage alone on the same batch with the
+# camera of tests/test_torch_reprojection.py (crop camera (0.04, 0, 0), 4.9 m),
+# where it descends, and gates the median lane's iterations there.
+REPROJ_CAMERA = {"camera_bbox": (1.0, 0.0, 0.0), "center": (320.0, 240.0), "scale": (200.0,),
+                 "size": (480.0, 640.0)}
+REPROJ_STAGE_CAMERA = dict(REPROJ_CAMERA, camera_bbox=(0.04, 0.0, 0.0))
+REPROJ_MIN_MEDIAN_ITERS = 10
+REPROJ_ITERS, REPROJ_ANGLES = 200, 4
+# the ranking-variant phase, provisional (the TPU records of these variants
+# are claims about another chip): per sequence <= 60 mm, the mean at most the
+# random batch's + 5 mm
+RANK_VARIANT_GATE_MM, RANK_VARIANT_MEAN_MARGIN_MM = 60.0, 5.0
 
 
 def require(cond: bool, msg: str) -> None:
@@ -258,7 +305,7 @@ def lanes_verts(model, gt, L):
     from uuo_mocap_tpu_torch.ops import rotations as rot
 
     F = gt.trans.shape[0]
-    angles = torch.arange(L, device="cuda", dtype=torch.float32) * (2 * torch.pi / L)
+    angles = torch.arange(L, device=gt.trans.device, dtype=torch.float32) * (2 * torch.pi / L)
     root = rot.rot_z(angles[:, None, None, None].expand(L, F, 1, 1)) @ gt.root_orient
     with torch.no_grad():
         return lbs_forward(model, gt.pose_body, gt.betas, root,
@@ -553,12 +600,16 @@ def full_surface_config():
     return merge_config(bench_parallel_config(), FULL_SURFACE)
 
 
-def make_batch(model, seed0=BATCH_SEED0, layout="random"):
+def make_batch(model, seed0=BATCH_SEED0, layout="random", camera=None):
     """``bench.py:_make_batch_inner``'s batch through the port's generators:
     sequence q has ground truth seed seed0 + 3q, markers seed0 + 3q + 1 (5 %
     occlusion; 41 at random vertices, or at the named layout's vertices with
-    the columns padded to 41), prior seed0 + 3q + 2 (bench.py's noise).
+    the columns padded to 41), prior seed0 + 3q + 2 (bench.py's noise); with
+    ``camera`` (a dict of streams, e.g. REPROJ_CAMERA) the prior carries them
+    in every frame.
     -> (ground truths, prepared sequences)."""
+    import numpy as np
+
     from uuo_mocap_tpu_torch.data.img_smpl import ImgSmpl
     from uuo_mocap_tpu_torch.data.marker_layout import resolve_layout_vertex_ids
     from uuo_mocap_tpu_torch.data.markers import ArrayMarkers
@@ -574,8 +625,11 @@ def make_batch(model, seed0=BATCH_SEED0, layout="random"):
         markers = generate_markers(model, gt, num_markers=N_MARKERS, seed=s + 1,
                                    occlusion_rate=0.05, vertex_ids=vids)
         prior = perturb_params(gt, seed=s + 2, pose_noise=0.05, trans_noise=0.08, betas_noise=0.2)
+        img = ImgSmpl.from_params(prior)
+        for name, value in (camera or {}).items():
+            setattr(img, name, np.tile(np.array(value, np.float32), (F_FRAMES, 1)))
         preps.append(prepare_sequence(
-            ImgSmpl.from_params(prior), ArrayMarkers(markers.points.cpu().numpy()),
+            img, ArrayMarkers(markers.points.cpu().numpy()),
             frame_bucket=None, pad_to_markers=None if vids is None else N_MARKERS))
         gts.append(gt)
     return gts, preps
@@ -703,7 +757,8 @@ def batch_phase(model, layout="random"):
     require(mean_v <= gates[0] and med_v <= gates[0],
             f"{tag} MPJPE mean {mean_v:.2f} / median {med_v:.2f} mm above {gates[0]} mm")
     require(max_v <= gates[1], f"{tag} MPJPE max {max_v:.2f} mm above {gates[1]} mm")
-    return {"counts": counts, "mpjpe": errs, "chamfer_digest": chamfer_digest}
+    return {"counts": counts, "mpjpe": errs, "chamfer_digest": chamfer_digest,
+            "evals": out["lbfgs_evals"], "eval_stats": out["eval_stats"]}
 
 
 def full_surface_phase(model):
@@ -1007,6 +1062,250 @@ def sdf_phase(model, random_chamfer_digest):
     return counts
 
 
+def reprojection_phase(model):
+    """The random batch with REPROJ_CAMERA's streams through
+    ``MultiSequenceSolver`` with the batch phases' config and both
+    reprojection stages on (REPROJ_ITERS iterations over REPROJ_ANGLES yaw
+    seeds; lanes = 4 sequences x 4 seeds).  Gates: outputs finite and of the
+    reference's shapes; both stages timed; each stage's call launched the
+    few-query forward and the backward; every sequence <= 35 mm.  Prints
+    per sequence and stage the per-seed metrics, the chosen seed, the
+    iterations and evaluations, and a digest per sequence.  Then
+    ``reprojection_stage_check``.  -> launch counts of the solve."""
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.parallel.batch_solver import MultiSequenceSolver
+    from uuo_mocap_tpu_torch.pipeline.reprojection import ReprojectionStage
+
+    tag = "reprojection"
+    gts, preps = make_batch(model, camera=REPROJ_CAMERA)
+    require(all(p.has_camera for p in preps), f"{tag}: a sequence without camera streams")
+    cfg = bench_parallel_config()
+    for key in ("reprojection_part", "reprojection_full"):
+        cfg["stages"][key].update(num_iters=REPROJ_ITERS, num_angles=REPROJ_ANGLES)
+    solver = MultiSequenceSolver(model, cfg, device="cuda")
+    stage = solver._reproj = ReprojectionStage(model, cfg, "reprojection_part")
+    calls = []
+    lanes = stage.lanes
+
+    def recorded(*args):
+        before, t0 = K.launch_counts(), time.time()
+        out = lanes(*args)
+        torch.cuda.synchronize()
+        after = K.launch_counts()
+        calls.append({"s": round(time.time() - t0, 3),
+                      "metrics": {k: v.cpu().numpy() for k, v in out["metrics"].items()},
+                      "evals": stage.last_result.num_evals.cpu().numpy(),
+                      "iters": stage.last_result.num_iters.cpu().numpy(),
+                      "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}})
+        return out
+
+    stage.lanes = recorded
+    K.reset_launch_counts()
+    t0 = time.time()
+    out = solver.solve_prepared(preps, save_stages=True)
+    torch.cuda.synchronize()
+    solve_s = time.time() - t0
+    counts = K.launch_counts()
+    frames = BATCH * F_FRAMES
+    print(f"{tag} solve: {solve_s:.2f} s, {frames / solve_s:.3f} frames/s ({frames} frames)",
+          flush=True)
+    print(f"{tag} stage times (s): {out['stage_times_s']}", flush=True)
+    print(f"{tag} L-BFGS evaluations: {out['lbfgs_evals']}; per stage: "
+          f"{json.dumps(out['eval_stats'])}", flush=True)
+    print(json.dumps({f"{tag}_launches": counts}), flush=True)
+    require(len(calls) == 2, f"{tag}: {len(calls)} stage calls, expected 2 (one per stage)")
+    for name, call in zip(("reprojection_part", "reprojection_full"), calls):
+        print(f"{tag} {name}: {call['s']} s, launches {call['launches']}", flush=True)
+        require(name in out["stage_times_s"], f"{tag}: {name} not timed")
+        for k in ("min_sqdist_forward_cuda", "min_sqdist_backward_cuda"):
+            require(call["launches"].get(k, 0) > 0, f"{tag}: {name} never launched {k}")
+        met = {k: v.reshape(BATCH, REPROJ_ANGLES) for k, v in call["metrics"].items()}
+        for q in range(BATCH):
+            lanes_q = slice(q * REPROJ_ANGLES, (q + 1) * REPROJ_ANGLES)
+            print(f"{tag} {name} sequence {q}: reproject {met['reproject'][q].tolist()}, chamfer "
+                  f"{met['chamfer'][q].tolist()}, chosen seed {int(np.argmin(met['reproject'][q]))}"
+                  f", iterations {call['iters'][lanes_q].tolist()}, evaluations "
+                  f"{call['evals'][lanes_q].tolist()}", flush=True)
+        require(all(np.isfinite(v).all() for v in call["metrics"].values()),
+                f"{tag}: {name} metrics not finite")
+        print(f"{tag} {name}: iterations per lane {call['iters'].tolist()}, median "
+              f"{float(np.median(call['iters']))} (the 0.2 m camera, ROADMAP C.12)", flush=True)
+    errs = check_batch_results(model, out, gts, preps, tag)
+    for q, r in enumerate(out["results"]):
+        print(f"{tag} sequence {q}: MPJPE {errs[q]:.3f} mm, best hypothesis "
+              f"{r['best_hypothesis']}, digest {digest(*(r[k] for k in STAGE_KEYS))}", flush=True)
+    print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in STAGE_KEYS))}",
+          flush=True)
+    require(max(errs) <= MPJPE_GATE_MM,
+            f"{tag} MPJPE max {max(errs):.2f} mm above {MPJPE_GATE_MM} mm")
+    reprojection_stage_check(model, cfg)
+    return counts
+
+
+def reprojection_stage_check(model, cfg):
+    """The reprojection stage alone (``ReprojectionStage.lanes``, as the
+    batch solve's ``_reprojection_lanes`` calls it) on the random batch with
+    REPROJ_STAGE_CAMERA's streams, 4.9 m from the body, where it descends:
+    lanes = 4 sequences x REPROJ_ANGLES seeds, REPROJ_ITERS iterations.
+    Gates: finite metrics and outputs of the stage's shapes; the few-query
+    forward and the backward launched; the median lane ran at least
+    REPROJ_MIN_MEDIAN_ITERS iterations; every lane ended below its starting
+    loss (the same stage at 0 iterations).  Prints the time, the per-lane
+    iterations, evaluations and losses."""
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.ops.geometry import get_marker_mask, median
+    from uuo_mocap_tpu_torch.pipeline.reprojection import ReprojectionStage
+
+    tag = "reprojection stage at 4.9 m"
+    _, preps = make_batch(model, camera=REPROJ_STAGE_CAMERA)
+
+    def lanes(field):  # [4, ...] -> [4 x REPROJ_ANGLES, ...], sequence-major
+        x = torch.as_tensor(np.stack([np.asarray(getattr(p, field), np.float32) for p in preps]),
+                            device="cuda")
+        return x.repeat_interleave(REPROJ_ANGLES, dim=0)
+
+    markers = lanes("markers")
+    angles = torch.arange(REPROJ_ANGLES, device="cuda", dtype=torch.float32).repeat(BATCH) * (
+        2 * np.pi / REPROJ_ANGLES)
+    args = (angles, markers, get_marker_mask(markers), lanes("o_pose_body"), lanes("o_betas"),
+            lanes("hmr_betas"), lanes("hmr_root_orient"), median(markers, dim=2),
+            lanes("camera_bbox"), lanes("cam_center"), lanes("cam_size"), lanes("cam_scale"),
+            lanes("img_mask"))
+    start = ReprojectionStage(model, merge_config(copy.deepcopy(cfg), {"stages": {
+        "reprojection_part": {"num_iters": 0}}}), "reprojection_part")
+    start.lanes(*args)
+    f0 = start.last_result.f  # the starting loss
+    stage = ReprojectionStage(model, cfg, "reprojection_part")
+    K.reset_launch_counts()
+    t0 = time.time()
+    out = stage.lanes(*args)
+    torch.cuda.synchronize()
+    stage_s = time.time() - t0
+    counts = K.launch_counts()
+    res = stage.last_result
+    iters, evals = res.num_iters.cpu().numpy(), res.num_evals.cpu().numpy()
+    f1 = res.f.cpu().numpy()
+    print(f"{tag}: {stage_s:.2f} s for {len(iters)} lanes x {F_FRAMES} frames, launches "
+          f"{json.dumps(counts)}", flush=True)
+    print(f"{tag}: iterations per lane {iters.tolist()}, median {float(np.median(iters))}; "
+          f"evaluations {evals.tolist()}", flush=True)
+    print(f"{tag}: loss per lane at the start {f0.cpu().numpy().tolist()}, at the end "
+          f"{f1.tolist()}; reproject {out['metrics']['reproject'].cpu().numpy().tolist()}, chamfer "
+          f"{out['metrics']['chamfer'].cpu().numpy().tolist()}", flush=True)
+    L = len(iters)
+    require(tuple(out["root_orient"].shape) == (L, F_FRAMES, 1, 3, 3)
+            and tuple(out["trans"].shape) == (L, F_FRAMES, 3), f"{tag}: output shapes")
+    require(all(bool(torch.isfinite(v).all()) for v in
+                (out["trans"], out["root_orient"], out["betas"], *out["metrics"].values())),
+            f"{tag}: outputs not finite")
+    for k in ("min_sqdist_forward_cuda", "min_sqdist_backward_cuda"):
+        require(counts.get(k, 0) > 0, f"{tag}: never launched {k}")
+    require(float(np.median(iters)) >= REPROJ_MIN_MEDIAN_ITERS,
+            f"{tag}: the median lane ran {float(np.median(iters))} iterations, under "
+            f"{REPROJ_MIN_MEDIAN_ITERS}")
+    require(bool((res.f < f0).all()), f"{tag}: a lane ended at or above its starting loss")
+
+
+def rank_variant_phase(model, random, gt, markers):
+    """The random batch through ``MultiSequenceSolver`` with the batch
+    phases' config, ``optimizer.rank_hier`` and ``hypothesis_prune.
+    rank_phase1``: the tournament's phase 1 runs the rank-per-iteration
+    solver (the rank kernel once per iteration, in the L-BFGS prepare hook),
+    phase 2 the coarse-to-fine ranking.  Gates: outputs finite and of the
+    reference's shapes; every phase-1 call launched the rank kernel; per
+    sequence <= RANK_VARIANT_GATE_MM, the mean <= the random batch's
+    (``random``, this run) + RANK_VARIANT_MEAN_MARGIN_MM.  Prints the lane
+    evaluations per stage beside the random batch's, and at the first cull's
+    shape (16 lanes x 450 frames x 41 markers) the agreement of
+    ``hierarchical_nearest`` with the rank kernel (share of equal picks, the
+    largest squared-distance gap where they differ) and both times on the
+    card.  -> launch counts of the solve."""
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.ops.rank_hier import hierarchical_nearest, rank_table_for
+    from uuo_mocap_tpu_torch.parallel.batch_solver import MultiSequenceSolver
+
+    tag = "rank variants"
+    gts, preps = make_batch(model)
+    cfg = bench_parallel_config()
+    cfg["optimizer"]["rank_hier"] = True
+    cfg["parallel"]["hypothesis_prune"]["rank_phase1"] = True
+    solver = MultiSequenceSolver(model, cfg, device="cuda")
+    frozen = solver.phase1_solver()
+    require(frozen is solver.stages._chamfer_solver_frozen and frozen.prepare is not None,
+            f"{tag}: phase 1 does not run the rank-per-iteration solver")
+    calls = []
+    run = solver.stages.chamfer_stage_lanes
+
+    def recorded(*args, solver=None, **kw):
+        before, t0 = K.launch_counts(), time.time()
+        out = run(*args, solver=solver, **kw)
+        torch.cuda.synchronize()
+        after = K.launch_counts()
+        calls.append(("phase 1" if solver is frozen else "phase 2", round(time.time() - t0, 3),
+                      {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+        return out
+
+    solver.stages.chamfer_stage_lanes = recorded
+    K.reset_launch_counts()
+    t0 = time.time()
+    out = solver.solve_prepared(preps, save_stages=True)
+    torch.cuda.synchronize()
+    solve_s = time.time() - t0
+    counts = K.launch_counts()
+    frames = BATCH * F_FRAMES
+    print(f"{tag} solve: {solve_s:.2f} s, {frames / solve_s:.3f} frames/s ({frames} frames)",
+          flush=True)
+    print(f"{tag} stage times (s): {out['stage_times_s']}", flush=True)
+    print(f"{tag} L-BFGS evaluations: {out['lbfgs_evals']} (random batch {random['evals']}); "
+          f"per stage: {json.dumps(out['eval_stats'])} (random batch "
+          f"{json.dumps(random['eval_stats'])})", flush=True)
+    print(f"{tag} chamfer stage calls (phase, s, launches): {calls}", flush=True)
+    print(json.dumps({"rank_variant_launches": counts}), flush=True)
+    print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in STAGE_KEYS))}",
+          flush=True)
+    phase1 = [c for c in calls if c[0] == "phase 1"]
+    require(phase1 and all(c[2].get("rank_nearest_cuda", 0) > 0 for c in phase1),
+            f"{tag}: phase 1 did not launch the rank kernel")
+    errs = check_batch_results(model, out, gts, preps, tag)
+    mean_v, ref_mean = float(np.mean(errs)), float(np.mean(random["mpjpe"]))
+    print(f"{tag} MPJPE per sequence (mm): {[round(e, 3) for e in errs]}; mean {mean_v:.3f} "
+          f"(random batch {ref_mean:.3f}; gates {RANK_VARIANT_GATE_MM} mm per sequence, mean <= "
+          f"{ref_mean + RANK_VARIANT_MEAN_MARGIN_MM:.3f} mm)", flush=True)
+    require(max(errs) <= RANK_VARIANT_GATE_MM,
+            f"{tag} MPJPE max {max(errs):.2f} mm above {RANK_VARIANT_GATE_MM} mm")
+    require(mean_v <= ref_mean + RANK_VARIANT_MEAN_MARGIN_MM,
+            f"{tag} MPJPE mean {mean_v:.2f} mm above the random batch's {ref_mean:.2f} mm + "
+            f"{RANK_VARIANT_MEAN_MARGIN_MM} mm")
+
+    # the coarse-to-fine ranking against the rank kernel at the first cull's shape
+    mk, verts, _ = rank_inputs(model, gt, markers, 16, False)
+    L, F, M, V = mk.shape[0], mk.shape[1], mk.shape[2], verts.shape[2]
+    table = rank_table_for(model)
+    hier = hierarchical_nearest(mk, verts, table)
+    dense = K.rank_nearest(mk, verts)
+    equal = hier == dense
+    gap = pick_gap(mk.reshape(L * F, M, 3), verts.reshape(L * F, V, 3), None,
+                   hier.reshape(L * F, M), dense.reshape(L * F, M))
+    max_gap = float(gap[~equal.reshape(L * F, M)].max()) if not bool(equal.all()) else 0.0
+    hier_ms = time_ms(lambda: hierarchical_nearest(mk, verts, table), iters=5)
+    rank_ms = time_ms(lambda: K.rank_nearest(mk, verts), iters=20)
+    print(f"{tag}: hierarchical_nearest against the rank kernel at L={L}, F={F}, M={M}, V={V}: "
+          f"{float(equal.float().mean()):.6f} of picks equal, largest d2 gap where they differ "
+          f"{max_gap:.3e} m^2; {hier_ms:.4f} ms against {rank_ms:.4f} ms (table: "
+          f"{table.coarse_ids.shape[0]} centres, {table.cand_ids.shape[1]} candidates per cell, "
+          f"top {table.top_p})", flush=True)
+    return counts
+
+
 def path_phase(model, gt, markers, prior):
     import numpy as np
     import torch
@@ -1080,6 +1379,10 @@ def path_phase(model, gt, markers, prior):
 
 
 CLI_METHODS = ("moshpp", "hmr", "video_mocap")
+# the sequential cli.test run's frames, bucketed to 128: a cut depth for the
+# time limit (150 until the reprojection and ranking-variant phases came; its
+# part tournament took 136 of 210 s there, PERF.md)
+CLI_SEQ_FRAMES = 80
 
 
 def _timed(owner, name, timers, key, sync=True):
@@ -1117,11 +1420,55 @@ def check_stageii(path, F, M):
             f"{path}: gender {z['gender']}, rate {z['mocap_frame_rate']}")
 
 
+def check_journal(path):
+    """An iteration journal ``cli.test --save_iterations`` wrote: read with
+    ``pickle`` alone, numpy arrays and Python scalars only, an entry for every
+    stage of the shipped config (part, chamfer, marker, marker_final_0) and
+    the L-BFGS segments of the last three, every segment's iterations a
+    multiple of 50 or its lane's last iteration."""
+    import pickle
+
+    import numpy as np
+
+    t0 = time.time()
+    with open(path, "rb") as f:
+        entries = pickle.load(f)
+    load_s = time.time() - t0
+
+    def plain(v):
+        if isinstance(v, dict):
+            return all(plain(x) for x in v.values())
+        if isinstance(v, list):
+            return all(plain(x) for x in v)
+        return isinstance(v, (np.ndarray, np.generic, int, float, str))
+
+    require(plain(entries), f"{path}: holds other types than numpy arrays and Python scalars")
+    for stage in ("part", "chamfer", "marker", "marker_final_0"):
+        require(bool(entries.get(stage)), f"{path}: no entry for {stage}")
+    summary = {}
+    for stage in ("chamfer", "marker", "marker_final_0"):
+        segs = entries.get(f"{stage}__segments") or []
+        require(bool(segs), f"{path}: no segments for {stage}")
+        last = {}
+        for seg in segs:
+            for lane, it in zip(seg["lanes"].tolist(), seg["iters"].tolist()):
+                last[lane] = max(last.get(lane, 0), it)
+        for seg in segs:
+            for lane, it in zip(seg["lanes"].tolist(), seg["iters"].tolist()):
+                require(it % 50 == 0 or it == last[lane],
+                        f"{path}: {stage} segment at iteration {it} of lane {lane}")
+        summary[stage] = (len(segs), [int(last[k]) for k in sorted(last)])
+    print(f"cli: journal {os.path.basename(path)}: {os.path.getsize(path)} bytes, loaded in "
+          f"{load_s * 1e3:.1f} ms; entries {sorted(entries)}; segments, last iterations per lane "
+          f"{summary}", flush=True)
+
+
 def cli_phase():
     """The user's entry points, in process, in a temporary directory: the
     synthetic export, ``cli.test --batch 4`` (bench.py's parallel settings
     at frame stride 1) on 4 x 450 x 41, ``cli.test`` sequential on one
-    150 x 41 sequence, and ``eval.comparisons`` on both.  -> launch counts."""
+    CLI_SEQ_FRAMES x 41 sequence, and ``eval.comparisons`` on both.  -> launch
+    counts."""
     import csv
     import glob
     import tempfile
@@ -1159,10 +1506,13 @@ def cli_phase():
     config = "\n".join([f"parent: {os.path.join(HERE, 'configs', 'video_mocap.yaml')}",
                         *yaml_lines({k: bench_parallel_config()[k]
                                      for k in ("parallel", "checkpoints_dir")})]) + "\n"
-    runs = (("cli_batch", [f"seq_{i:03d}" for i in range(BATCH)], F_FRAMES, 0, ["--batch", str(BATCH)]),
-            ("cli_seq", ["seq_000"], 150, 10, []))
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+            journal_dir = os.path.join(d, "iterations")
+            runs = (("cli_batch", [f"seq_{i:03d}" for i in range(BATCH)], F_FRAMES, 0,
+                     ["--batch", str(BATCH)]),
+                    ("cli_seq", ["seq_000"], CLI_SEQ_FRAMES, 10,
+                     ["--save_iterations", journal_dir]))
             cfg_path = os.path.join(d, "video_mocap_parallel.yaml")
             with open(cfg_path, "w") as f:
                 f.write(config)
@@ -1224,6 +1574,9 @@ def cli_phase():
                         f"above {MPJPE_GATE_MM} mm")
                 require(stats["video_mocap"]["mpjpe"]["mean"] < stats["hmr"]["mpjpe"]["mean"],
                         f"{ds}: video_mocap MPJPE not below the prior's")
+                if "--save_iterations" in extra:
+                    for seq in seqs:
+                        check_journal(os.path.join(journal_dir, f"s1_{seq}_iterations.pkl"))
             counts = K.launch_counts()
     finally:
         for owner, name, fn in originals:
@@ -1274,7 +1627,9 @@ def main() -> int:
     print(f"full_surface phase: {time.time() - t0:.1f} s", flush=True)
     for name, phase, args in (("model", model_phase, ()),
                               ("network", network_phase, (random["mpjpe"],)),
-                              ("sdf", sdf_phase, (random["chamfer_digest"],))):
+                              ("sdf", sdf_phase, (random["chamfer_digest"],)),
+                              ("reprojection", reprojection_phase, ()),
+                              ("rank_variant", rank_variant_phase, (random, gt, markers))):
         t0 = time.time()
         phase(model, *args)
         print(f"{name} phase: {time.time() - t0:.1f} s", flush=True)

@@ -15,8 +15,11 @@ The shipped configuration's batch solve is held by
 fit's subtree set (hmr_full), the stages that run (hmr_full, hmr_part) and
 the number of yaw hypotheses (mht_rotation).
 """
-import copy
 import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
+import copy
 
 import numpy as np
 import pytest

@@ -7,8 +7,11 @@ function; the tournament's ``pick_survivors``; the streaming L-BFGS and its
 Inputs are made with numpy from seeds.  A lane form and the loop over lanes
 run the same float32 operations on the same numbers, so they are held to
 1e-6 relative (the order of a sum over lanes may differ)."""
-import copy
 import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
+import copy
 
 import jax.numpy as jnp
 import numpy as np
@@ -283,10 +286,14 @@ def test_batch_solver_device_rule_and_unported_options(model):
         MultiSequenceSolver(model, cfg, mesh=object(), device="cpu")
     solver = MultiSequenceSolver(model, copy.deepcopy(cfg), device="cpu")
     assert solver.stages._chamfer_solver.max_width == 16
+    # hypothesis_prune.rank_phase1 is accepted: phase 1 descends with the
+    # rank-per-iteration solver, at the sweep's lane width
     cfg_rank = copy.deepcopy(cfg)
     cfg_rank["parallel"] = {"hypothesis_prune": {"enabled": True, "rank_phase1": True}}
-    with pytest.raises(NotImplementedError):
-        MultiSequenceSolver(model, cfg_rank, device="cpu").solve_prepared([])
+    solver = MultiSequenceSolver(model, cfg_rank, device="cpu")
+    phase1 = solver.phase1_solver()
+    assert phase1 is solver.stages._chamfer_solver_frozen and phase1 is not solver.stages._chamfer_solver
+    assert phase1.prepare is not None and phase1.max_width == 16
 
 
 def test_prepare_sequence_padding_matches_jax():

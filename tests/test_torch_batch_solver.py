@@ -19,8 +19,17 @@ amplifies float32 noise: on these sequences the reference moves its
 rotations by 2-4e-2 under that perturbation, the port lands 1-1.5e-2 from
 it, and trans stays within 1e-2 for both.
 """
-import copy
 import os
+
+# Set before torch loads OpenMP (every port test file does the same): an idle
+# OpenMP thread then sleeps at once instead of spinning.  The test run puts
+# several processes on one host, each with a thread per core, and spinning
+# threads take the cores that the other processes need.  The policy decides
+# how a thread waits, not how the work is split, so the results are the same
+# bit for bit.
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
+
+import copy
 
 import numpy as np
 import pytest
@@ -144,25 +153,35 @@ def mpjpe_mm(model, out, gt) -> float:
     return float(torch.linalg.norm(j - j_gt, dim=-1).mean()) * 1e3
 
 
-def test_batch_solve_matches_jax_at_frame_stride_1(models, batch, reference, port):
-    ref, ours, moved = reference[0], port[0], reference[2]
+def test_batch_solve_keys_shapes_and_eval_stats_match_jax(reference, port):
+    ref, ours = reference[0], port[0]
     assert set(ours) == set(ref)
     assert ours["scores"].shape == ref["scores"].shape == (Q, 1)
-    np.testing.assert_array_equal(ours["best_hypothesis"], ref["best_hypothesis"])
     assert set(ours["stage_times_s"]) == set(ref["stage_times_s"])
     assert set(ours["eval_stats"]) == set(ref["eval_stats"])
     for stage, st in ref["eval_stats"].items():
         assert set(ours["eval_stats"][stage]) == set(st) - {"segments"}, stage
         assert ours["eval_stats"][stage]["lanes"] == st["lanes"], stage
         assert ours["eval_stats"][stage]["width"] == st["width"], stage
-    for r, o, m in zip(ref["results"], ours["results"], moved["results"]):
+    for r, o in zip(ref["results"], ours["results"]):
         assert set(o) == set(r)
         for k, v in r.items():
             if isinstance(v, np.ndarray):
                 assert o[k].shape == v.shape, k
+
+
+def test_batch_solve_winners_chains_and_labels_match_jax(reference, port):
+    ref, ours = reference[0], port[0]
+    np.testing.assert_array_equal(ours["best_hypothesis"], ref["best_hypothesis"])
+    for r, o in zip(ref["results"], ours["results"]):
+        assert o["best_hypothesis"] == r["best_hypothesis"]
         np.testing.assert_array_equal(o["chain"], r["chain"])
         np.testing.assert_array_equal(o["markers_labels"], r["markers_labels"])
-        assert o["best_hypothesis"] == r["best_hypothesis"]
+
+
+def test_batch_solve_matches_jax_at_frame_stride_1(models, batch, reference, port):
+    ref, ours, moved = reference[0], port[0], reference[2]
+    for r, o, m in zip(ref["results"], ours["results"], moved["results"]):
         for k in ("trans", "pose_body", "root_orient", "betas"):
             assert np.isfinite(o[k]).all(), k
             tol = PARAM_ATOL

@@ -4,6 +4,10 @@ The JAX synthetic model is built once and carried across with
 ``convert.body_model_from_numpy``, so both sides use the same tensors.
 Tolerance 1e-5 m: float32 sums over V = 6890 (the joint regressor) and over
 207 pose correctives run in another order on each side."""
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

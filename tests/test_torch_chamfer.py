@@ -10,6 +10,10 @@ XLA scatter).
 Tolerances: argmin indices exactly (random clouds have no near-ties);
 values 1e-5 (float32 sums of three products in another order); gradients
 1e-5 relative to their largest entry."""
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -30,10 +30,16 @@ Tolerances:
     position carries a float32 step of 6e-8 m, which x 30 Hz x 1000 is
     1.8e-3 mm/s).
 """
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
+import contextlib
 import copy
 import csv
 import glob
-import os
+import json
+import pickle
 import shutil
 
 import jax.numpy as jnp
@@ -99,17 +105,56 @@ def _run_dir(root, name, scale=None):
     return str(dst)
 
 
-def solve_runs(exported, tag, mode_args):
+class SharedReferenceSolvers:
+    """While active, the reference's solvers are built once per
+    configuration and reused: ``cli.test`` and ``multimodal_video_mocap``
+    build fresh ones per call, and a fresh solver traces every program anew.
+    The runs differ in their data only (the markers scaled by 1 + 1e-6), and
+    a solver's results depend on its inputs alone
+    (``tests/test_torch_batch_solver.py`` reuses one for its scaled solve)."""
+
+    def __init__(self):
+        import uuo_mocap_tpu.parallel.batch_solver as jbs
+        import uuo_mocap_tpu.pipeline.multimodal as jmm
+
+        self._made = {}
+        self._slots = [(jbs, "MultiSequenceSolver"), (jmm, "SolveStages"), (jmm, "PartFitter")]
+
+    def _shared(self, cls):
+        def build(model, config, *args, **kw):
+            key = (cls, json.dumps(config, sort_keys=True, default=str))
+            if key not in self._made:
+                self._made[key] = cls(model, config, *args, **kw)
+            return self._made[key]
+
+        return build
+
+    @contextlib.contextmanager
+    def active(self):
+        originals = [getattr(mod, name) for mod, name in self._slots]
+        for (mod, name), cls in zip(self._slots, originals):
+            setattr(mod, name, self._shared(cls))
+        try:
+            yield
+        finally:
+            for (mod, name), cls in zip(self._slots, originals):
+                setattr(mod, name, cls)
+
+
+def solve_runs(exported, tag, mode_args, port_args=()):
     """``cli.test`` of both packages on the JAX export, and of the JAX
-    package on its markers scaled by 1 + 1e-6.  -> {run: input_dir}."""
+    package on its markers scaled by 1 + 1e-6; ``port_args`` go to the
+    port's run only.  -> {run: input_dir}."""
     root, config = exported
     dirs = {}
+    shared = SharedReferenceSolvers()
     for name, main, extra, scale in ((f"jax_{tag}", jax_cli.main, [], None),
                                      (f"jax_{tag}_perturbed", jax_cli.main, [], 1 + 1e-6),
-                                     (f"port_{tag}", cli.main, ["--cpu_only"], None)):
+                                     (f"port_{tag}", cli.main, ["--cpu_only", *port_args], None)):
         dirs[name] = _run_dir(root, name, scale)
-        main(["--config", config, "--dataset", "ds", "--input_dir", dirs[name], "--synthetic",
-              "--print_options"] + mode_args + extra)
+        with shared.active() if main is jax_cli.main else contextlib.nullcontext():
+            main(["--config", config, "--dataset", "ds", "--input_dir", dirs[name],
+                  "--synthetic", "--print_options"] + mode_args + extra)
     return dirs
 
 
@@ -156,20 +201,49 @@ def test_export_matches_jax(exported):
                 np.testing.assert_array_equal(fb["2d_joints"][0], fa["2d_joints"][0])
 
 
+def check_journal(path, stages, last_iters):
+    """A journal ``cli.test --save_iterations`` wrote: read with ``pickle``
+    alone, numpy arrays and Python scalars only, an entry and segments for
+    every stage in ``stages``, and every segment's iterations a multiple of
+    50 or its lane's last iteration (at most ``last_iters``)."""
+    with open(path, "rb") as f:
+        entries = pickle.load(f)
+
+    def plain(v):
+        if isinstance(v, dict):
+            return all(plain(x) for x in v.values())
+        if isinstance(v, list):
+            return all(plain(x) for x in v)
+        return isinstance(v, (np.ndarray, np.generic, int, float, str))
+
+    assert plain(entries)
+    for stage in stages:
+        assert entries[stage] and entries[f"{stage}__segments"], stage
+        last = {}
+        for seg in entries[f"{stage}__segments"]:
+            for lane, it in zip(seg["lanes"].tolist(), seg["iters"].tolist()):
+                last[lane] = max(last.get(lane, 0), it)
+        assert 0 < max(last.values()) <= last_iters, stage
+        for seg in entries[f"{stage}__segments"]:
+            for lane, it in zip(seg["lanes"].tolist(), seg["iters"].tolist()):
+                assert it % 50 == 0 or it == last[lane], (stage, lane, it)
+    return entries
+
+
 def _rotations(poses):
     return np.asarray(jrot.axis_angle_to_matrix(jnp.asarray(poses.reshape(poses.shape[0], 24, 3))))
 
 
-def compare_results(dirs, tag, expected):
-    """Every ``*_stageii*.npz`` of the port's run against the reference's,
-    with the tolerances of the module docstring."""
+def compare_outputs(dirs, tag, expected):
+    """The port's run wrote the reference's ``*_stageii*.npz`` files, with
+    its keys and shapes, markers, rate and gender."""
     d_ref, d_pert, d_out = dirs[f"jax_{tag}"], dirs[f"jax_{tag}_perturbed"], dirs[f"port_{tag}"]
     files = _rel_files(d_ref, "ds/results/video_mocap/**/*.npz")
     assert files == _rel_files(d_out, "ds/results/video_mocap/**/*.npz") == _rel_files(
         d_pert, "ds/results/video_mocap/**/*.npz")
     assert len(files) == expected
     for rel in files:
-        za, zb, zp = (np.load(os.path.join(d, rel)) for d in (d_ref, d_out, d_pert))
+        za, zb = (np.load(os.path.join(d, rel)) for d in (d_ref, d_out))
         assert sorted(za.files) == sorted(zb.files) == sorted(
             ["poses", "betas", "trans", "mocap_frame_rate", "mocap_markers", "gender"])
         for k in za.files:
@@ -178,18 +252,31 @@ def compare_results(dirs, tag, expected):
         np.testing.assert_array_equal(zb["mocap_markers"], za["mocap_markers"])
         assert float(zb["mocap_frame_rate"]) == float(za["mocap_frame_rate"])
         assert str(zb["gender"]) == str(za["gender"]) == "neutral"
-        pairs = {k: (za[k], zb[k], zp[k], PARAM_ATOL) for k in ("trans", "betas")}
-        pairs["rotations"] = (*(_rotations(z["poses"]) for z in (za, zb, zp)), ROT_ATOL)
-        for k, (ref, out, pert, base) in pairs.items():
-            moved, dist = float(np.abs(pert - ref).max()), float(np.abs(out - ref).max())
-            print(f"{rel} {k}: port {dist:.3g}, reference under 1e-6 scaling {moved:.3g}")
-            np.testing.assert_allclose(out, ref, atol=max(base, 2 * moved), rtol=0,
-                                       err_msg=f"{rel} {k}")
+
+
+def compare_params(dirs, tag, key):
+    """``key`` (trans, betas or rotations) of every ``*_stageii*.npz`` of
+    the port's run against the reference's, with the tolerances of the
+    module docstring."""
+    d_ref, d_pert, d_out = dirs[f"jax_{tag}"], dirs[f"jax_{tag}_perturbed"], dirs[f"port_{tag}"]
+    for rel in _rel_files(d_ref, "ds/results/video_mocap/**/*.npz"):
+        za, zb, zp = (np.load(os.path.join(d, rel)) for d in (d_ref, d_out, d_pert))
+        if key == "rotations":
+            ref, out, pert = (_rotations(z["poses"]) for z in (za, zb, zp))
+            base = ROT_ATOL
+        else:
+            ref, out, pert, base = za[key], zb[key], zp[key], PARAM_ATOL
+        moved, dist = float(np.abs(pert - ref).max()), float(np.abs(out - ref).max())
+        print(f"{rel} {key}: port {dist:.3g}, reference under 1e-6 scaling {moved:.3g}")
+        np.testing.assert_allclose(out, ref, atol=max(base, 2 * moved), rtol=0,
+                                   err_msg=f"{rel} {key}")
 
 
 def test_cli_batch_matches_jax(batch_runs):
     # 2 sequences x (final + chamfer, marker, marker_final stages)
-    compare_results(batch_runs, "batch", expected=8)
+    compare_outputs(batch_runs, "batch", expected=8)
+    for key in ("trans", "betas", "rotations"):
+        compare_params(batch_runs, "batch", key)
 
 
 def _metrics_close(out, ref, where):
@@ -257,10 +344,18 @@ def test_port_clis_raise_without_a_gpu_unless_cpu_is_asked(exported):
         export.main(["--input_dir", str(root / "none")] + EXPORT_ARGS)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         comparisons.main(["--input_dir", str(root / "port"), "--dataset", "ds", "--methods", "moshpp"])
-    with pytest.raises(NotImplementedError, match="journal"):
-        cli.main(["--config", config, "--dataset", "ds", "--input_dir", str(root / "port"),
-                  "--synthetic", "--cpu_only", "--save_iterations", str(root / "it")])
     assert not os.path.exists(root / "port" / "ds" / "results")
+    # --save_iterations (sequential) saves the iteration journal: one
+    # sequence, one yaw hypothesis, 2-iteration stages
+    small = root / "two_iterations.yaml"
+    small.write_text(CONFIG.replace("num_iters: 20", "num_iters: 2")
+                     + "num_root_orient_angles: 1\n")
+    d = _run_dir(root, "port_journal")
+    assert cli.main(["--config", str(small), "--dataset", "ds", "--input_dir", d, "--synthetic",
+                     "--cpu_only", "--num_files", "0", "--save_iterations",
+                     str(root / "it")]) == 1
+    journal = root / "it" / "s1_a_iterations.pkl"
+    check_journal(journal, ["chamfer", "marker", "marker_final_0"], 2)
 
 
 def test_part_scores_ignore_frame_bucket_padding():

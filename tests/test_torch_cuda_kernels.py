@@ -7,6 +7,10 @@ tests/test_torch_cuda_kernels.py`` (the root ``conftest.py`` imports JAX).
 Tolerances: indices exactly except ties (random clouds have none), values
 1e-5; the backward exactly, bit for bit: it writes each sum in the order
 m = 0, 1, ... without atomics, as the CPU's ``index_add_`` does."""
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,10 @@ The pieces are held to the reference instead: the root stage
 (``test_torch_stages_surface.py``), the whole configuration through the
 batch solve (``test_torch_full_surface.py``).
 """
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import numpy as np
 import torch
 

@@ -9,6 +9,9 @@ on both sides and is held within 1e-6, its axis-angle export within 1e-5
 rad; the loaded models' forwards within 1e-5 m.
 """
 import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import pickle
 import struct
 import sys

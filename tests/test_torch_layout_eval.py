@@ -13,6 +13,10 @@ Tolerances (float32 on both sides):
   * metrics 1e-4 mm, and 1e-6 relative for the velocity metrics, whose
     values are m/s x 1000 (float32 differences scaled by the frame rate).
 """
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

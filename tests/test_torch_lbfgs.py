@@ -5,6 +5,10 @@ Inputs are made with numpy from a seed and fed to both sides.  Tolerance:
 iterates within 1e-4 after 20 iterations — both sides run float32 on the
 CPU, and the only difference is the order of the reductions in dot
 products and losses, which L-BFGS amplifies only mildly over 20 steps."""
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -11,8 +11,11 @@ handed to both packages as numpy.  Tolerances:
     form equal to the single-sequence form lane by lane.
 The whole slice against the JAX package is ``test_torch_learned_solve.py``.
 """
-import copy
 import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
+import copy
 
 import jax
 import jax.numpy as jnp

@@ -13,6 +13,10 @@ loop of the reference) and a tie (two markers at one position: both
 packages give the lower index the gradient).  ``closest_point``'s distances
 are compared squared, at the expansion's 1e-7 m^2 noise floor.
 """
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,7 +56,7 @@ def _data(seed=0, lanes=None):
 
 
 def _jax_vg(f, args, argnums):
-    val, grads = jax.value_and_grad(f, argnums=argnums)(*(jnp.asarray(a) for a in args))
+    val, grads = jax.jit(jax.value_and_grad(f, argnums=argnums))(*(jnp.asarray(a) for a in args))
     return np.asarray(val), [np.asarray(g) for g in grads]
 
 

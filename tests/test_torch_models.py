@@ -17,6 +17,8 @@ port's own msgpack reader, and random flax inits at a narrow width (latent
 """
 import os
 
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import jax
 import jax.numpy as jnp
 import numpy as np

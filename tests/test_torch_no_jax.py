@@ -2,8 +2,11 @@
 (and ``chip_smoke.py``) loads none of ``jax``, ``uuo_mocap_tpu``, ``joblib``,
 ``flax`` and ``msgpack`` (absent on the GPU machine), and its entry points
 refuse to run on the CPU unless asked to."""
-import glob
 import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
+import glob
 import re
 import subprocess
 import sys

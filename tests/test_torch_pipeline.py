@@ -12,9 +12,12 @@ handed to both sides as numpy.  Tolerances:
     by 8.1e-3 m (trans) and 5.1e-3 (rotations) when its markers are scaled
     by 1 + 1e-6, and the port lands 5.9e-3 / 4.5e-3 from it.
 """
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import copy
 import glob
-import os
 import re
 
 import jax
@@ -72,7 +75,7 @@ def sequence(models):
 
 
 def _jax_value_and_grad(fun, params, lane, shared):
-    f, g = jax.value_and_grad(lambda p: fun(p, lane, shared))(params)
+    f, g = jax.jit(jax.value_and_grad(lambda p: fun(p, lane, shared)))(params)
     return float(f), {k: np.asarray(v) for k, v in g.items()}
 
 

@@ -18,8 +18,11 @@ is larger (the batch solve's rule, ``tests/test_torch_batch_solver.py``;
 the scaled solve runs only when a difference passes 1e-2); the port's
 single-sequence form equal to its lanes form's first lane within 1e-5.
 """
-import copy
 import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -108,9 +111,9 @@ def test_root_closure_matches_jax(models, sequences, mode, single_directional):
     cfg = config(mode, single_directional)
     jfun = JaxSolveStages(jm, cfg)._root_solver.fun
     # the reference's closure is one lane's (its solver vmaps it)
-    fj, gj = jax.value_and_grad(lambda p: jfun(
+    fj, gj = jax.jit(jax.value_and_grad(lambda p: jfun(
         p, {k: jnp.asarray(v) for k, v in lane.items()},
-        {k: jnp.asarray(v) for k, v in shared.items()}))(
+        {k: jnp.asarray(v) for k, v in shared.items()})))(
         {k: jnp.asarray(v) for k, v in params.items()})
     tfun = SolveStages(tm, copy.deepcopy(cfg))._root_solver.fun
     p = {k: torch.as_tensor(v)[None].requires_grad_(True) for k, v in params.items()}

@@ -3,6 +3,10 @@
 Same numpy inputs (seeded) on both sides, float32 on the CPU.  Tolerance
 1e-6: the formulas are identical, so only the last float32 bit of a few
 products may differ."""
+import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

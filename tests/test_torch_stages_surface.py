@@ -18,8 +18,11 @@ twice what the reference itself moves when its markers are scaled by
 1 + 1e-6, whichever is larger (``tests/test_torch_batch_solver.py``'s
 rule; the scaled descent runs only when a difference passes 1e-2).
 """
-import copy
 import os
+
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -246,9 +249,9 @@ def test_barycentric_pick_on_a_shared_edge_matches_jax(models, data):
 
 def _check_closure(jfun, tfun, params, lane, shared):
     """The reference's one-lane closure against the port's with one lane."""
-    fj, gj = jax.value_and_grad(lambda p: jfun(
+    fj, gj = jax.jit(jax.value_and_grad(lambda p: jfun(
         p, {k: jnp.asarray(v) for k, v in lane.items()},
-        {k: jnp.asarray(v) for k, v in shared.items()}))(
+        {k: jnp.asarray(v) for k, v in shared.items()})))(
         {k: jnp.asarray(v) for k, v in params.items()})
     p = {k: torch.as_tensor(np.array(v))[None].requires_grad_(True) for k, v in params.items()}
     ft = tfun(p, {k: torch.as_tensor(np.array(v))[None] for k, v in lane.items()},

@@ -119,9 +119,6 @@ def run_test(input_dir: str, output_dir: str, dataset: str, camera: Optional[str
     from uuo_mocap_tpu_torch.data.pkl_io import load_pkl
     from uuo_mocap_tpu_torch.pipeline.segmentation import trim_trailing_zero_frames
 
-    if save_iterations:
-        raise NotImplementedError(
-            "--save_iterations: the iteration journal is not ported yet (a later slice)")
     if part:
         mocap_dir = os.path.join(input_dir, dataset, "mocap_parts___" + part)
     elif synthetic:
@@ -187,6 +184,10 @@ def run_test(input_dir: str, output_dir: str, dataset: str, camera: Optional[str
             from uuo_mocap_tpu_torch.parallel.batch_solver import MultiSequenceSolver
             from uuo_mocap_tpu_torch.pipeline.multimodal import prepare_sequence
 
+            if save_iterations:
+                print("[warn] --save_iterations is not supported with --batch > 1 (the "
+                      "lane-batched sweep keeps no per-sequence iteration journal); run without "
+                      "--batch to record iterations")
             solver = MultiSequenceSolver(model, config, device=device)
             for g0 in range(0, len(work), batch):
                 group = work[g0: g0 + batch]
@@ -210,13 +211,19 @@ def run_test(input_dir: str, output_dir: str, dataset: str, camera: Optional[str
                     break
             return file_count
 
+        from uuo_mocap_tpu_torch.pipeline.journal import IterationJournal
         from uuo_mocap_tpu_torch.pipeline.multimodal import multimodal_video_mocap
 
         for item in work:
             img_smpl, markers = load(item, prefetcher)
+            journal = IterationJournal() if save_iterations else None
             result = multimodal_video_mocap(img_smpl, markers, config, model, offset=0,
                                             print_options=print_options, save_stages=True,
-                                            device=device)
+                                            iter_journal=journal, device=device)
+            if journal is not None:
+                os.makedirs(save_iterations, exist_ok=True)
+                journal.save(os.path.join(
+                    save_iterations, f"{item['subject']}_{item['seq_name']}_iterations.pkl"))
             export_result(item, result)
             print(f"Solved {item['subject']}/{item['seq_name']} in {result['solve_time_s']:.1f}s, "
                   f"{result['lbfgs_evals']} evals, stages {result['stage_times_s']}")
@@ -246,7 +253,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", type=str, default=None,
                         help="write a torch.profiler Chrome trace (trace.json) to this dir")
     parser.add_argument("--save_iterations", type=str, default=None,
-                        help="write the per-stage iteration journal pkl here (not ported yet)")
+                        help="write each sequence's iteration journal pkl to this directory "
+                             "(sequential solves only)")
     parser.add_argument("--batch", type=int, default=1,
                         help="solve this many sequences as lanes of one batch solve "
                              "(1 = sequential)")
@@ -256,9 +264,6 @@ def main(argv=None) -> int:
     from uuo_mocap_tpu_torch.data.config import load_config
 
     device = device_from_args(args)
-    if args.save_iterations:
-        raise NotImplementedError(
-            "--save_iterations: the iteration journal is not ported yet (a later slice)")
     config = load_config(args.config)
     output_dir = os.path.join(args.input_dir, args.dataset, "results", config["name"])
     if os.path.exists(args.body_models):
@@ -272,7 +277,8 @@ def main(argv=None) -> int:
     common = dict(input_dir=args.input_dir, output_dir=output_dir, dataset=args.dataset,
                   camera=DATASET_CAMERAS.get(args.dataset), config=config, model=model,
                   sequences=args.sequences, subjects=args.subjects, num_files=args.num_files,
-                  print_options=args.print_options, batch=args.batch, device=device)
+                  print_options=args.print_options, save_iterations=args.save_iterations,
+                  batch=args.batch, device=device)
 
     def run_all() -> int:
         base = os.path.join(args.input_dir, args.dataset)

@@ -31,9 +31,14 @@ own result under ``part`` and the root stage's under ``root``, as the
 single-sequence solve writes them; the reference's batch solve writes no
 ``root`` entry and files the root stage's result under ``part``.
 
-Not ported yet (they raise ``NotImplementedError``): a ``mesh`` (the
-vertex-sharded model axis), the reprojection stages and the
-rank-per-iteration phase-1 solver (``hypothesis_prune.rank_phase1``).
+The reprojection stages run as sequence x yaw-seed lanes
+(``_reprojection_lanes``) on the camera streams ``prepare_sequence``
+carries; a sequence without them raises ``ValueError`` when the config
+turns the stages on.  Under ``hypothesis_prune.rank_phase1`` the
+tournament's phase 1 descends with the rank-per-iteration chamfer solver.
+
+Not ported yet (it raises ``NotImplementedError``): a ``mesh`` (the
+vertex-sharded model axis, ROADMAP A.9).
 """
 from __future__ import annotations
 
@@ -52,19 +57,25 @@ from uuo_mocap_tpu_torch.ops.geometry import (
 from uuo_mocap_tpu_torch.pipeline.multimodal import (
     PreparedSequence, _mode_per_column, _numpy, _params_to_stage_dict, network_segmentation)
 from uuo_mocap_tpu_torch.pipeline.part_fit import PartFitter, _prune_rounds
+from uuo_mocap_tpu_torch.pipeline.reprojection import ReprojectionStage
 from uuo_mocap_tpu_torch.pipeline.segmentation import filter_rigid, segment_rigid
 from uuo_mocap_tpu_torch.pipeline.stages import SmplParams, SolveStages, _forward
 
 
 def _tree_map(fn, *trees):
-    """``fn`` over tensors, or field by field over NamedTuples of tensors."""
+    """``fn`` over tensors, or leaf by leaf over NamedTuples and dicts of
+    them."""
     if isinstance(trees[0], torch.Tensor):
         return fn(*trees)
-    return type(trees[0])(*(fn(*leaves) for leaves in zip(*trees)))
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return type(trees[0])(*(_tree_map(fn, *leaves) for leaves in zip(*trees)))
 
 
 def _lane_count(tree) -> int:
-    return (tree if isinstance(tree, torch.Tensor) else tree[0]).shape[0]
+    while not isinstance(tree, torch.Tensor):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree.shape[0]
 
 
 def chunked_lanes(fn, width: Optional[int], *args):
@@ -119,6 +130,7 @@ class MultiSequenceSolver:
         for solver in (self.stages._chamfer_solver, self.marker_solver, self.stages._root_solver):
             self._configure_solver(solver)
         self.prune_cfg = dict(pcfg.get("hypothesis_prune") or {})
+        self._reproj = None  # the reprojection stage, built on first use
         part_w = int(pcfg.get("part_lane_width", 16))
         if part_w:
             self.part_fitter._solver.max_width = part_w
@@ -139,18 +151,18 @@ class MultiSequenceSolver:
             solver.max_width = int(self.lane_width)
             solver.pad_width = self._pad_width
 
-    def _check_supported(self, preps: List[PreparedSequence]) -> None:
-        cfg = self.config
-        do_reproj = ((cfg["find_best_part_fits"] and cfg["stages"]["reprojection_part"]["num_iters"] > 0)
-                     or cfg["stages"]["reprojection_full"]["num_iters"] > 0)
-        if do_reproj and not all(p.has_camera for p in preps):
-            raise ValueError(
-                "reprojection stages need HMR camera streams; prepare_sequence found none on at "
-                "least one sequence (synthetic ImgSmpl priors carry no camera data)")
-        if do_reproj:
-            raise NotImplementedError("the reprojection stages are not ported yet (a later slice)")
-        if self.prune_cfg.get("enabled") and self.prune_cfg.get("rank_phase1"):
-            self.stages._chamfer_solver_frozen  # noqa: B018 — raises
+    def phase1_solver(self):
+        """The chamfer solver of the hypothesis tournament's phase 1
+        (``batch_solver.py:506-514``): the rank-per-iteration one under
+        ``hypothesis_prune.rank_phase1``, unless ``optimizer.
+        rank_per_iteration`` already makes the stage's own solver freeze
+        its ranking; phase 2 always runs the stage's own solver."""
+        if (self.prune_cfg.get("rank_phase1")
+                and not self.config["optimizer"].get("rank_per_iteration", False)):
+            solver = self.stages._chamfer_solver_frozen
+            self._configure_solver(solver)
+            return solver
+        return self.stages._chamfer_solver
 
     # ------------------------------------------------------------- full sweep
     def solve_prepared(self, preps: List[PreparedSequence], print_options: List[str] = (),
@@ -165,8 +177,14 @@ class MultiSequenceSolver:
         "lbfgs_evals", "solve_time_s", "stage_times_s", "eval_stats",
         "scores" [Q, A_eff], "best_hypothesis" [Q]}."""
         t_start = time.time()
-        self._check_supported(preps)
         cfg = self.config
+        do_reproj_part = (cfg["find_best_part_fits"]
+                          and cfg["stages"]["reprojection_part"]["num_iters"] > 0)
+        do_reproj_full = cfg["stages"]["reprojection_full"]["num_iters"] > 0
+        if (do_reproj_part or do_reproj_full) and not all(p.has_camera for p in preps):
+            raise ValueError(
+                "reprojection stages need HMR camera streams; prepare_sequence found none on at "
+                "least one sequence (synthetic ImgSmpl priors carry no camera data)")
         model, stages, dev = self.model, self.stages, self.device
         progress = "progress" in print_options
         Q = len(preps)
@@ -249,6 +267,17 @@ class MultiSequenceSolver:
                 for q, p in enumerate(preps)])
             del mean_vertices
 
+        # ---- camera-aware alignment before the part fit, lanes = sequence x
+        #      yaw seed; its best seed's betas and root replace the prior's
+        if do_reproj_part:
+            log(f"Batch[{Q}]: reprojection_part (lanes = sequence x angle)...")
+            criterion = cfg["stages"]["reprojection_part"].get("criterion", "reprojection")
+            with timed("reprojection_part"):
+                o_betas_b, o_root_b, _ = self._reprojection_lanes(
+                    preps, int(cfg["stages"]["reprojection_part"]["num_angles"]),
+                    "reproject" if criterion == "reprojection" else "chamfer", markers_b,
+                    weights_b, o_pose_b, o_betas_b, median(markers_b, dim=2), img_mask_b)
+
         # ---- part fit, every sequence's subtree search in one lane batch
         trans_seed = median(markers_b, dim=2)  # [Q, F, 3]
         root_seed, betas_seed = o_root_b, o_betas_b
@@ -283,11 +312,20 @@ class MultiSequenceSolver:
             root_seed = sel(o_root_b, root_seed)
             betas_seed = sel(o_betas_b, betas_seed)
 
+        part_seeds = (betas_seed, root_seed, trans_seed)  # the part fit's own result
+
+        # ---- camera-aware alignment of the full body
+        if do_reproj_full:
+            log(f"Batch[{Q}]: reprojection_full (lanes = sequence x angle)...")
+            with timed("reprojection_full"):
+                betas_seed, root_seed, trans_seed = self._reprojection_lanes(
+                    preps, int(cfg["stages"]["reprojection_full"]["num_angles"]), "reproject",
+                    markers_b, weights_b, o_pose_b, betas_seed, trans_seed, img_mask_b)
+
         labels_mode_b = torch.as_tensor(
             np.stack([_mode_per_column(marker_labels_b[q]) for q in range(Q)]), device=dev)
 
         # ---- root stage, lanes = sequence
-        part_seeds = (betas_seed, root_seed, trans_seed)
         do_root = cfg["stages"]["root"]["num_iters"] > 0
         if do_root:
             log(f"Batch[{Q}]: root stage...")
@@ -328,7 +366,7 @@ class MultiSequenceSolver:
             # then descend to convergence at full frames
             rounds, strides = _prune_rounds(self.prune_cfg, 150, 1, "hypothesis_prune")
             if bool(self.prune_cfg.get("enabled")) and A > rounds[-1][1]:
-                solver = stages._chamfer_solver
+                solver = self.phase1_solver()
 
                 def stride_frames(x, s):  # the frame axis (dim 1), where present
                     return x[:, ::s] if s > 1 and x.dim() >= 2 and x.shape[1] == F else x
@@ -490,6 +528,37 @@ class MultiSequenceSolver:
             "scores": scores,
             "best_hypothesis": best,
         }
+
+    # ------------------------------------------------- reprojection lanes
+    def _reprojection_lanes(self, preps, nA, metric_key, markers_b, weights_b, o_pose_b,
+                            betas0_b, trans0_b, img_mask_b):
+        """Camera alignment of every sequence at once (``batch_solver.py:
+        754-792``): lanes = sequence x yaw seed, ``lane_width`` lanes at a
+        time.  -> each sequence's best seed (least ``metric_key``): betas
+        [Q, 1, 10] (the frame mean), root [Q, F, 1, 3, 3], trans [Q, F, 3].
+        Both stages read their iterations and losses from
+        ``reprojection_part``, as the reference does (ROADMAP C.10)."""
+        if self._reproj is None:
+            self._reproj = ReprojectionStage(self.model, self.config, "reprojection_part")
+        Q, dev = len(preps), self.device
+        angles_l = torch.as_tensor(np.tile(np.arange(nA) * 2 * np.pi / max(nA, 1), Q),
+                                   dtype=torch.float32, device=dev)  # sequence-major
+
+        def lane_rep(x):
+            return x.repeat_interleave(nA, dim=0)
+
+        def cam(field):
+            return lane_rep(torch.as_tensor(np.stack([getattr(p, field) for p in preps]),
+                                            device=dev))
+
+        out = chunked_lanes(
+            self._reproj.lanes, self.lane_width, angles_l, lane_rep(markers_b),
+            lane_rep(weights_b), lane_rep(o_pose_b), lane_rep(betas0_b), cam("hmr_betas"),
+            cam("hmr_root_orient"), lane_rep(trans0_b), cam("camera_bbox"), cam("cam_center"),
+            cam("cam_size"), cam("cam_scale"), lane_rep(img_mask_b))
+        best = np.argmin(_numpy(out["metrics"][metric_key]).reshape(Q, nA), axis=1)
+        sel = torch.as_tensor(np.arange(Q) * nA + best, device=dev)
+        return out["betas"][sel].mean(dim=1, keepdim=True), out["root_orient"][sel], out["trans"][sel]
 
     # ----------------------------------------------- compat core-stage sweep
     def solve(self, markers: torch.Tensor, weights: torch.Tensor, o_pose_body: torch.Tensor,

@@ -2,12 +2,13 @@
 ``uuo_mocap_tpu/pipeline/multimodal.py``).
 
 Segmentation (rigid clustering on the host, or in network mode the
-learned segmenter on the solve's device) -> AABB heuristic -> part fit ->
-root stage -> chamfer stage over A yaw hypotheses -> nearest points ->
-marker IK (or its ``use_sdf`` form) -> ``stage_repeats`` x (nearest points
-+ marker IK) -> output dict with the reference's keys and shapes (numpy).
-The reprojection stages and the iteration journal raise
-``NotImplementedError``: later slices.
+learned segmenter on the solve's device) -> AABB heuristic -> camera
+alignment (``reprojection_part``, with the prior's camera streams) -> part
+fit -> camera alignment of the full body (``reprojection_full``) -> root
+stage -> chamfer stage over A yaw hypotheses -> nearest points -> marker IK
+(or its ``use_sdf`` form) -> ``stage_repeats`` x (nearest points + marker
+IK) -> output dict with the reference's keys and shapes (numpy).  An
+``IterationJournal`` records at the reference's points.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from uuo_mocap_tpu_torch.device import resolve_device
 from uuo_mocap_tpu_torch.ops import rotations as rot
 from uuo_mocap_tpu_torch.ops.geometry import get_aabb, get_aabb_volume, get_marker_mask, median
 from uuo_mocap_tpu_torch.pipeline.part_fit import PartFitter
+from uuo_mocap_tpu_torch.pipeline.reprojection import ReprojectionStage
 from uuo_mocap_tpu_torch.pipeline.segmentation import (
     chains_from_labels, filter_rigid, merge_symmetric_labels, segment_markers_network,
     segment_rigid)
@@ -78,12 +80,15 @@ def _params_to_stage_dict(params: SmplParams) -> Dict[str, np.ndarray]:
 class PreparedSequence:
     """Host-preprocessed inputs of one sequence (numpy): resampled prior
     streams, offset-padded + frame-bucketed markers, validity masks.  ``F``
-    includes bucket padding, ``F_real`` is the true frame count."""
+    includes bucket padding, ``F_real`` is the true frame count.  The camera
+    streams, which only the reprojection stages read, are None when the
+    prior has no camera (every bbox entry zero, as in a synthetic prior)."""
 
     __slots__ = (
         "markers", "img_mask", "frame_valid", "F", "F_real", "M_real",
         "o_trans", "o_root_orient", "o_pose_body", "o_foot_contacts", "o_betas",
         "mocap_freq", "has_camera",
+        "hmr_betas", "hmr_root_orient", "camera_bbox", "cam_center", "cam_size", "cam_scale",
     )
 
 
@@ -155,10 +160,61 @@ def prepare_sequence(img_smpl, mocap_markers, offset: Optional[int] = None,
     prep.o_trans, prep.o_root_orient, prep.o_pose_body = o_trans, o_root_orient, o_pose_body
     prep.o_foot_contacts, prep.o_betas = o_foot_contacts, o_betas
     prep.mocap_freq = mocap_freq
-    # the camera streams feed only the reprojection stages (a later slice)
     bbox = getattr(img_smpl, "camera_bbox", None)
     prep.has_camera = bbox is not None and bool(np.any(np.abs(np.asarray(bbox)) > 0))
+
+    def cam_stream(name):
+        """A camera stream at frame index, cut or padded to F by repeating
+        its last frame (``multimodal.py:203-230``)."""
+        a = getattr(img_smpl, name, None)
+        if not prep.has_camera or a is None:
+            return None
+        a = np.asarray(a, np.float32)
+        if a.shape[0] < F:
+            a = np.concatenate([a, np.repeat(a[-1:], F - a.shape[0], axis=0)])
+        return a[:F]
+
+    prep.hmr_betas, prep.hmr_root_orient = cam_stream("betas"), cam_stream("hmr_root_orient")
+    prep.camera_bbox, prep.cam_center = cam_stream("camera_bbox"), cam_stream("center")
+    prep.cam_size, prep.cam_scale = cam_stream("size"), cam_stream("scale")
     return prep
+
+
+def _chamfer_segment_convert(root0_batch: torch.Tensor):
+    """The chamfer stage's optimizer parameters -> render-ready arrays per
+    lane, for the journal's segments (``multimodal.py:233-254``)."""
+
+    def conv(params, lanes):
+        z = torch.as_tensor(params["z"])
+        if z.shape[-1] == 6:
+            root = rot.rotation_6d_to_matrix(z)
+        else:
+            root = rot.rot_z(z) @ root0_batch.detach().cpu()[torch.as_tensor(lanes)]
+        return {"trans": params["trans"], "betas": params["betas"],
+                "pose_body": rot.rotation_6d_to_matrix(torch.as_tensor(params["pose6d"])).numpy(),
+                "root_orient": root.numpy()}
+
+    return conv
+
+
+def _marker_segment_convert(params, lanes):
+    """The marker stage's optimizer parameters -> render-ready arrays."""
+    return {"trans": params["trans"], "betas": params["betas"],
+            "pose_body": rot.rotation_6d_to_matrix(torch.as_tensor(params["pose6d"])).numpy(),
+            "root_orient": rot.rotation_6d_to_matrix(torch.as_tensor(params["root6d"])).numpy()}
+
+
+@contextlib.contextmanager
+def _observed(solver, journal, stage, convert):
+    """``journal``'s segment hook on ``solver`` while the block runs."""
+    if journal is None:
+        yield
+        return
+    solver.snapshot = journal.segment_hook(stage, convert)
+    try:
+        yield
+    finally:
+        solver.snapshot = None
 
 
 def _mode_per_column(labels: np.ndarray) -> np.ndarray:
@@ -198,12 +254,12 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
                            frame_bucket: Optional[int] = 64, device=None) -> Dict[str, Any]:
     """Solve SMPL parameters from unlabeled markers and a video prior
     (``multimodal.py:264-643``).  ``model`` must live on ``device`` (default:
-    the card).  Returns the reference's output dict with numpy arrays."""
+    the card).  ``iter_journal``: an ``IterationJournal`` that records each
+    stage's result and the L-BFGS segments of the chamfer and marker
+    stages.  Returns the reference's output dict with numpy arrays."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, the solve runs on {dev}")
-    if iter_journal is not None:
-        raise NotImplementedError("the iteration journal is not ported yet (a later slice)")
     t_start = time.time()
     progress = "progress" in print_options
 
@@ -224,9 +280,6 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
         stage_times[name] = stage_times.get(name, 0.0) + time.time() - t0
 
     prep = prepare_sequence(img_smpl, mocap_markers, offset=offset, frame_bucket=frame_bucket)
-    if prep.has_camera and (config["stages"]["reprojection_part"]["num_iters"] > 0
-                            or config["stages"]["reprojection_full"]["num_iters"] > 0):
-        raise NotImplementedError("the reprojection stages are not ported yet (a later slice)")
     mocap_freq = prep.mocap_freq
     markers_np = prep.markers
     F, F_real = prep.F, prep.F_real
@@ -276,6 +329,34 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
     root_orient = o_root_orient
     betas = o_betas
 
+    def reprojection(key, num_angles):
+        """The camera alignment over ``num_angles`` yaw seeds; both stages
+        read iterations and losses from ``reprojection_part``, as the
+        reference does (ROADMAP C.10)."""
+        angles = torch.as_tensor(np.arange(num_angles) * 2 * np.pi / max(num_angles, 1),
+                                 dtype=torch.float32, device=dev)
+        with timed(key):
+            return ReprojectionStage(model, config, "reprojection_part")(
+                angles, markers, weights, o_pose_body, betas, on_dev(prep.hmr_betas),
+                on_dev(prep.hmr_root_orient), trans, on_dev(prep.camera_bbox),
+                on_dev(prep.cam_center), on_dev(prep.cam_size), on_dev(prep.cam_scale), img_mask)
+
+    # ---- camera-aware alignment: the best yaw seed's betas, root and trans
+    #      replace the prior's (no shipped config turns it on)
+    if (config["find_best_part_fits"] and config["stages"]["reprojection_part"]["num_iters"] > 0
+            and prep.has_camera):
+        log("Stage [reprojection]: multi-angle camera alignment (batched)...")
+        reproj = reprojection("reprojection_part",
+                              int(config["stages"]["reprojection_part"]["num_angles"]))
+        criterion = config["stages"]["reprojection_part"].get("criterion", "reprojection")
+        metrics = {k: _numpy(v) for k, v in reproj["metrics"].items()}
+        best_a = int(np.argmin(metrics["reproject" if criterion == "reprojection" else "chamfer"]))
+        betas = o_betas = reproj["betas"][best_a].mean(dim=0, keepdim=True)
+        root_orient = o_root_orient = reproj["root_orient"][best_a]
+        trans = reproj["trans"][best_a]
+        if iter_journal is not None:
+            iter_journal.record("reprojection", metrics=metrics, best=best_a)
+
     # ---- part fitting
     if config["find_best_part_fits"]:
         log("Stage [part]: fitting kinematic subtrees...")
@@ -296,12 +377,24 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
         if save_stages:
             output["stages"]["part"] = _params_to_stage_dict(
                 SmplParams(o_pose_body, betas, root_orient, trans))
+        if iter_journal is not None:
+            iter_journal.record("part", params=SmplParams(o_pose_body, betas, root_orient, trans))
 
     # ---- full-body fallback
     if (not config["find_best_part_fits"]) or aabb_ratio > 0.4:
         trans = median(markers, dim=1)
         root_orient = o_root_orient
         betas = o_betas
+
+    # ---- camera-aware alignment of the full body (its num_angles, the rest
+    #      of reprojection_part's settings)
+    if config["stages"]["reprojection_full"]["num_iters"] > 0 and prep.has_camera:
+        log("Stage [reprojection_full]: multi-angle camera alignment (batched)...")
+        reproj = reprojection("reprojection_full",
+                              int(config["stages"]["reprojection_full"]["num_angles"]))
+        best_a = int(np.argmin(_numpy(reproj["metrics"]["reproject"])))
+        betas = reproj["betas"][best_a].mean(dim=0, keepdim=True)
+        root_orient, trans = reproj["root_orient"][best_a], reproj["trans"][best_a]
 
     marker_labels_mode = torch.as_tensor(
         _mode_per_column(marker_labels) if marker_labels.size
@@ -318,6 +411,8 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
         root_orient, trans, betas = params_root.root_orient, params_root.trans, params_root.betas
         if save_stages:
             output["stages"]["root"] = _params_to_stage_dict(params_root)
+        if iter_journal is not None:
+            iter_journal.record("root", params=params_root)
 
     # ---- chamfer + marker stages over A yaw hypotheses (lanes)
     A = int(config["num_root_orient_angles"])
@@ -331,8 +426,12 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
     def tile(x):
         return x[None].expand((A,) + x.shape)
 
+    # the marker stage's solver (the SDF form under use_sdf), for the journal
+    marker_solver = (stages._marker_solver_sdf if config["stages"]["marker"].get("use_sdf")
+                     else stages._marker_solver) if iter_journal is not None and do_marker else None
     if do_chamfer:
-        with timed("chamfer"):
+        with timed("chamfer"), _observed(stages._chamfer_solver, iter_journal, "chamfer",
+                                         _chamfer_segment_convert(root0_batch)):
             chamfer_all, res_c = stages.chamfer_stage_batched(
                 markers, weights, o_pose_body, o_betas, o_pose_body, betas, root0_batch, trans,
                 marker_labels_mode, frame_valid=frame_valid)
@@ -346,7 +445,8 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
         with timed("nearest"):
             attach_all = stages.nearest_points_batched(markers, chamfer_all, img_mask,
                                                        nearest_labels)
-        with timed("marker"):
+        with timed("marker"), _observed(marker_solver, iter_journal, "marker",
+                                        _marker_segment_convert):
             marker_all, res_m = stages.marker_stage_batched(
                 markers, weights, o_pose_body, o_betas, chamfer_all, attach_all,
                 frame_valid=frame_valid)
@@ -362,6 +462,10 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
         output["stages"]["chamfer"] = _params_to_stage_dict(SmplParams(*(t[best] for t in chamfer_all)))
     if save_stages and do_marker:
         output["stages"]["marker"] = _params_to_stage_dict(params)
+    if iter_journal is not None:
+        iter_journal.record("chamfer", params=SmplParams(*(t[best] for t in chamfer_all)),
+                            scores=scores)
+        iter_journal.record("marker", params=params)
 
     # ---- final refinement repeats
     if do_marker:
@@ -373,13 +477,16 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
                 marker_labels = _numpy(stages.marker_labels_from_attachment(attachment, F))
                 if config["stages"]["segment"]["rigid_filter"]:
                     marker_labels = filter_rigid(markers_np, marker_labels)
-            with timed("marker_final"):
+            with timed("marker_final"), _observed(marker_solver, iter_journal,
+                                                  f"marker_final_{rep}", _marker_segment_convert):
                 params_b, res_f = stages.marker_stage_batched(
                     markers, weights, params.pose_body, o_betas,
                     SmplParams(*(t[None] for t in params)),
                     type(attachment)(*(t[None] for t in attachment)), frame_valid=frame_valid)
             params = SmplParams(*(t[0] for t in params_b))
             total_evals += int(res_f.num_evals.sum())
+            if iter_journal is not None:
+                iter_journal.record(f"marker_final_{rep}", params=params)
         if save_stages:
             output["stages"]["marker_final"] = _params_to_stage_dict(params)
 

@@ -31,6 +31,7 @@ from uuo_mocap_tpu_torch.ops import rotations as rot
 from uuo_mocap_tpu_torch.ops.chamfer import (
     BIG, masked_chamfer, mean_nearest_vertex_over_frames, nearest_vertex_frames, part_vertex_index)
 from uuo_mocap_tpu_torch.ops.point_mesh import point_mesh_distance
+from uuo_mocap_tpu_torch.ops.rank_hier import RankTable, hierarchical_nearest, rank_table_for
 from uuo_mocap_tpu_torch.solver import losses as L
 from uuo_mocap_tpu_torch.solver.lbfgs import BatchedLbfgs, LbfgsOptions
 
@@ -105,12 +106,18 @@ def _per_lane_weighted_mean(d2: torch.Tensor, weights: torch.Tensor) -> torch.Te
     return (d2 * w).flatten(1).sum(-1) / torch.clamp_min(w.flatten(1).sum(-1), 1e-12)
 
 
-def _sparse_chamfer(model: BodyModel, sp: SmplParams, markers, weights) -> torch.Tensor:
+def _sparse_chamfer(model: BodyModel, sp: SmplParams, markers, weights,
+                    table: RankTable | None = None) -> torch.Tensor:
     """Single-directional weighted chamfer per lane with an O(M) backward:
-    rank on a no-grad dense forward, differentiate the gathered forward."""
+    rank on a no-grad dense forward (coarse to fine with ``table``),
+    differentiate the gathered forward."""
     with torch.no_grad():
         verts_ng = _forward(model, _detach(sp))["vertices"]
-        idx = _ranked_nearest(markers, verts_ng)
+        if table is None:
+            idx = _ranked_nearest(markers, verts_ng)
+        else:
+            idx = hierarchical_nearest(markers.expand(verts_ng.shape[:-2] + markers.shape[-2:]),
+                                       verts_ng, table)
     return _sparse_chamfer_at(model, sp, markers, weights, idx)
 
 
@@ -154,10 +161,6 @@ class SolveStages:
         self.config = config
         self.vertex_labels = model.vertex_part_labels()  # [V]
         self.part_ids = torch.arange(model.lbs_weights.shape[1], device=model.device)  # [P]
-        opt = config["optimizer"]
-        if opt.get("rank_per_iteration") or opt.get("rank_hier"):
-            raise NotImplementedError(
-                "optimizer.rank_per_iteration / rank_hier are not ported yet (a later slice)")
 
     @functools.cached_property
     def _part_index(self):
@@ -249,6 +252,24 @@ class SolveStages:
     # --------------------------------------------------------------- chamfer
     @functools.cached_property
     def _chamfer_solver(self) -> BatchedLbfgs:
+        return self._make_chamfer_solver(
+            bool(self.config["optimizer"].get("rank_per_iteration", False)))
+
+    @functools.cached_property
+    def _chamfer_solver_frozen(self) -> BatchedLbfgs:
+        """The rank-per-iteration chamfer solver whatever
+        ``optimizer.rank_per_iteration`` says: the phase-1 descent of the
+        hypothesis tournament under ``hypothesis_prune.rank_phase1``, where
+        the objective only has to rank lanes (``stages.py:350-359``)."""
+        return self._make_chamfer_solver(True)
+
+    def _make_chamfer_solver(self, rank_per_iteration: bool) -> BatchedLbfgs:
+        """The chamfer stage's solver (``stages.py:361-461``).  On the
+        sparse path (the shipped losses) ``optimizer.rank_hier`` ranks coarse
+        to fine (``ops/rank_hier.py``), and ``rank_per_iteration`` freezes
+        the ranking for each iteration: the rank kernel runs once, in the
+        L-BFGS ``prepare`` hook, and every evaluation of the iteration's
+        line search reuses its picks.  Only the config keys select them."""
         cfg = self.config
         scfg = cfg["stages"]["chamfer"]
         losses = scfg["losses"]
@@ -258,8 +279,18 @@ class SolveStages:
         # sparse-gradient path: exact when every active loss avoids dense
         # vertex tensors (the shipped config: full_chamfer + regs)
         sparse = single_dir and set(losses) <= _SPARSE_SAFE_LOSSES
+        table = rank_table_for(model) if sparse and cfg["optimizer"].get("rank_hier") else None
+        rank_freeze = sparse and rank_per_iteration
 
-        def fun(p, lane, shared):
+        def to_smpl(p, d):
+            return SmplParams(rot.rotation_6d_to_matrix(p["pose6d"]), p["betas"],
+                              self._chamfer_apply(p["z"], d["root_orient0"]), p["trans"])
+
+        def prepare(p, lane, shared):
+            d = _data(lane, shared)
+            return _ranked_nearest(d["markers"], _forward(model, to_smpl(p, d))["vertices"])
+
+        def fun(p, lane, shared, idx=None):
             d = _data(lane, shared)
             root_orient0 = d["root_orient0"]
             z_root = self._chamfer_apply(p["z"], root_orient0)
@@ -267,9 +298,12 @@ class SolveStages:
             sp = SmplParams(pose, p["betas"], z_root, p["trans"])
             total = torch.zeros(p["trans"].shape[0], dtype=p["trans"].dtype, device=p["trans"].device)
             if sparse:
-                if "full_chamfer" in losses:
+                if "full_chamfer" in losses and idx is not None:
+                    total = total + losses["full_chamfer"] * _sparse_chamfer_at(
+                        model, sp, d["markers"], d["weights"], idx)
+                elif "full_chamfer" in losses:
                     total = total + losses["full_chamfer"] * _sparse_chamfer(
-                        model, sp, d["markers"], d["weights"])
+                        model, sp, d["markers"], d["weights"], table)
             else:  # dense: the min_sqdist Function (and its backward kernel)
                 out = _forward(model, sp)
                 if "part_chamfer" in losses:
@@ -294,7 +328,8 @@ class SolveStages:
             return total
 
         # the reference hard-codes lr=0.1 for this stage (optimization.py:181)
-        return BatchedLbfgs(fun, _stage_opts(cfg, "chamfer", lr_override=0.1))
+        return BatchedLbfgs(fun, _stage_opts(cfg, "chamfer", lr_override=0.1),
+                            prepare=prepare if rank_freeze else None)
 
     def _chamfer_apply(self, z, root_orient0):
         if self.config["stages"]["chamfer"].get("yaw_lock", True):
@@ -555,12 +590,6 @@ class SolveStages:
                 "o_betas": o_betas_l}
         p_opt, res = self._marker_solver_sdf.run(params0, lane, {})
         return self._post_marker(p_opt), res
-
-    @property
-    def _chamfer_solver_frozen(self):
-        raise NotImplementedError(
-            "the rank-per-iteration chamfer solver (hypothesis_prune.rank_phase1) is not "
-            "ported yet (a later slice)")
 
     def chamfer_stage_lanes(self, markers_l, weights_l, o_pose_l, o_betas_l, pose0_l, betas0_l,
                             root0_l, trans0_l, labels_l, frame_valid_l, solver=None):

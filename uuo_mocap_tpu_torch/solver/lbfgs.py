@@ -18,6 +18,13 @@ that has finished (or whose line search has) is frozen: its state and its
 counters stop, exactly as under the reference's ``vmap`` of ``while_loop``.
 The host reads one flag per line-search evaluation to decide whether any
 lane is still running.
+
+Two optional hooks follow the reference.  ``prepare(x) -> aux`` computes
+non-differentiated data once per iteration (the rank freeze: nearest-vertex
+ids) and the closure takes ``(x, aux)`` for every evaluation of that
+iteration (``lbfgs.py:245-290``).  An observer of the parameters is called
+at the end of every segment of ``SEGMENT_SIZE`` iterations, and when the run
+ends (``lbfgs.py:557-563``).
 """
 from __future__ import annotations
 
@@ -26,6 +33,10 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+# iterations per segment of the reference's device loop (``stages.py:47``):
+# the rate at which ``BatchedLbfgs.snapshot`` sees the parameters
+SEGMENT_SIZE = 50
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,8 +230,17 @@ class LbfgsState(NamedTuple):
     done: torch.Tensor
 
 
-def lbfgs_init(fun, x0: torch.Tensor, opts: LbfgsOptions) -> LbfgsState:
-    f0, g0 = _value_and_grad(fun, x0)
+def _with_aux(fun, prepare, x: torch.Tensor):
+    """``fun`` itself, or with ``prepare``'s aux computed at x held fixed."""
+    if prepare is None:
+        return fun
+    with torch.no_grad():
+        aux = prepare(x.detach())
+    return lambda x_: fun(x_, aux)
+
+
+def lbfgs_init(fun, x0: torch.Tensor, opts: LbfgsOptions, prepare=None) -> LbfgsState:
+    f0, g0 = _value_and_grad(_with_aux(fun, prepare, x0), x0)
     L, n = x0.shape
     H = opts.history_size
     z = torch.zeros((L, H, n), dtype=x0.dtype, device=x0.device)
@@ -256,10 +276,17 @@ def _direction(st: LbfgsState, H: int) -> torch.Tensor:
     return torch.where((st.hist == 0)[:, None], -st.g, r)
 
 
-def lbfgs_step(fun, st: LbfgsState, opts: LbfgsOptions) -> LbfgsState:
+def lbfgs_step(fun, st: LbfgsState, opts: LbfgsOptions, prepare=None) -> LbfgsState:
     """One L-BFGS iteration for every lane (direction, line search, history
-    and convergence update); the caller keeps it only for running lanes."""
+    and convergence update); the caller keeps it only for running lanes.
+    With ``prepare`` the iteration re-evaluates (f, g) at its start under
+    ``prepare(x)``'s aux, counted as one evaluation, and holds that aux for
+    its line search (``lbfgs.py:269-300``)."""
     H = opts.history_size
+    if prepare is not None:
+        fun = _with_aux(fun, prepare, st.x)
+        f, g = _value_and_grad(fun, st.x)
+        st = st._replace(f=f, g=g, n_evals=st.n_evals + 1)
     d = _direction(st, H)
     gtd = _dot(st.g, d)
     dd_break = gtd > -opts.tolerance_change
@@ -297,20 +324,90 @@ def lbfgs_step(fun, st: LbfgsState, opts: LbfgsOptions) -> LbfgsState:
         done=done)
 
 
-def lbfgs_run(fun, x0: torch.Tensor, opts: LbfgsOptions, iter_cap: int | None = None
-              ) -> Tuple[LbfgsState, int]:
+def _segment_ends(k: int, running: bool) -> bool:
+    """After k iterations of a working set: a segment ends every
+    SEGMENT_SIZE iterations, and when the set stops (unless it just did)."""
+    return (k > 0 and k % SEGMENT_SIZE == 0) if running else (k == 0 or k % SEGMENT_SIZE != 0)
+
+
+def lbfgs_run(fun, x0: torch.Tensor, opts: LbfgsOptions, iter_cap: int | None = None,
+              prepare=None, on_segment=None) -> Tuple[LbfgsState, int]:
     """Minimize every lane of ``fun(x [L, n]) -> [L]`` from x0 [L, n].
+    ``on_segment(state)``, if given, sees the state at every segment's end.
     Returns the final state and the number of lockstep iterations run."""
     cap = opts.max_iter if iter_cap is None else min(opts.max_iter, int(iter_cap))
-    st = lbfgs_init(fun, x0, opts)
+    st = lbfgs_init(fun, x0, opts, prepare)
     steps = 0
     while True:
         alive = (~st.done) & (st.n_iter < cap)
-        if not bool(alive.any()):
+        running = bool(alive.any())
+        if on_segment is not None and _segment_ends(steps, running):
+            on_segment(st)
+        if not running:
             return st, steps
-        new = lbfgs_step(fun, st, opts)
+        new = lbfgs_step(fun, st, opts, prepare)
         st = LbfgsState(*(_sel(alive, a, b) for a, b in zip(new, st)))
         steps += 1
+
+
+def _result(st: LbfgsState) -> LbfgsResult:
+    return LbfgsResult(x=st.x, f=st.f, grad_norm=st.g.abs().amax(-1), num_iters=st.n_iter,
+                       num_evals=st.n_evals)
+
+
+def _raveler(params: Dict[str, torch.Tensor], lead: int):
+    """Flatten a dict of tensors in sorted key order (``ravel_pytree``'s
+    order) after ``lead`` leading dims -> (x [*lead, n], unflatten)."""
+    keys = sorted(params)
+    shapes = [params[k].shape[lead:] for k in keys]
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
+    head = params[keys[0]].shape[:lead]
+    x = torch.cat([params[k].reshape(head + (-1,)) for k in keys], dim=-1).float()
+
+    def unflatten(x):
+        return {k: p.reshape(x.shape[:-1] + tuple(s))
+                for k, p, s in zip(keys, torch.split(x, sizes, dim=-1), shapes)}
+
+    return x, unflatten
+
+
+def lbfgs_minimize_flat(fun, x0: torch.Tensor, opts: LbfgsOptions) -> LbfgsResult:
+    """Minimize ``fun(x [n]) -> scalar`` from x0 [n] (``lbfgs.py:426-449``).
+
+    With x0 [L, n], L independent problems (the reference's ``vmap`` of this
+    function): ``fun(x [R, n], rows [R]) -> [R]`` evaluates the lanes
+    ``rows``, and every iteration evaluates only the lanes still running, so
+    a lane that stops is frozen and costs nothing more.  A lane's result is
+    its lone run's.  This loop stays apart from ``BatchedLbfgs``: the
+    shipped stages evaluate fixed-width lanes in lockstep, and their
+    results (and ``chip_smoke.py``'s digests of them) depend on those
+    shapes, so compacting them would move every shipped digest."""
+    if x0.dim() == 1:
+        st, _ = lbfgs_run(lambda x: fun(x[0])[None], x0[None], opts)
+        return LbfgsResult(*(t[0] for t in _result(st)))
+    rows = torch.arange(x0.shape[0], device=x0.device)
+    st = lbfgs_init(lambda x: fun(x, rows), x0, opts)
+    while True:
+        rows = ((~st.done) & (st.n_iter < opts.max_iter)).nonzero()[:, 0]
+        if rows.numel() == 0:
+            return _result(st)
+        new = lbfgs_step(lambda x, r=rows: fun(x, r), LbfgsState(*(t[rows] for t in st)), opts)
+        st = LbfgsState(*(t.index_copy(0, rows, n) for t, n in zip(st, new)))
+
+
+def lbfgs_minimize(fun, params0: Dict[str, torch.Tensor], opts: LbfgsOptions,
+                   batched: bool = False) -> Tuple[Dict[str, torch.Tensor], LbfgsResult]:
+    """Minimize ``fun(params) -> scalar`` over a dict of tensors
+    (``lbfgs.py:452-463``) -> (optimized params, result).  ``batched``: every
+    tensor carries a leading lane axis, one problem per lane, and
+    ``fun(params, rows)`` returns the values of the lanes ``rows``, whose
+    rows ``params`` holds (see ``lbfgs_minimize_flat``)."""
+    x0, unflatten = _raveler(params0, int(batched))
+    if batched:
+        res = lbfgs_minimize_flat(lambda x, rows: fun(unflatten(x), rows), x0, opts)
+    else:
+        res = lbfgs_minimize_flat(lambda x: fun(unflatten(x)), x0, opts)
+    return {k: v.detach() for k, v in unflatten(res.x).items()}, res
 
 
 def _gather(st: LbfgsState, idx: torch.Tensor) -> LbfgsState:
@@ -353,16 +450,28 @@ class BatchedLbfgs:
     carried in lockstep).  Evaluations are counted as the reference counts
     them, 1 + the line search's evaluations per iteration, so the two
     packages' numbers compare.
+
+    ``prepare(params, lane, shared) -> aux`` (the rank freeze): computed once
+    per iteration, and ``fun`` then takes ``(params, lane, shared, aux)``.
+    ``snapshot(lanes, iters, params)``, if set, sees the working set at the
+    end of every segment of ``SEGMENT_SIZE`` iterations and when the working
+    set changes or the run ends: its pool lane ids [W] (duplicates
+    included), iterations [W] and parameters (a dict of numpy arrays [W,
+    ...]), as the reference's observer does (``lbfgs.py:557-563``).  The
+    reference refills the working set only between segments, the port
+    between any two iterations, so under streaming the segments differ.
     """
 
     def __init__(self, fun, opts: LbfgsOptions, max_width: int | None = None,
-                 pad_width: bool = False):
+                 pad_width: bool = False, prepare=None):
         self.fun = fun
         self.opts = opts
         self.max_width = max_width
         self.pad_width = pad_width
+        self.prepare = prepare
         self.iter_cap = None
         self.warmup_iter_cap = None
+        self.snapshot = None
         self.last_run_stats: Dict[str, int] = {}
 
     def width(self, L: int) -> int:
@@ -375,28 +484,28 @@ class BatchedLbfgs:
 
     def run(self, params0: Dict[str, torch.Tensor], lane: Dict[str, torch.Tensor],
             shared: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], LbfgsResult]:
-        keys = sorted(params0)
-        L = params0[keys[0]].shape[0]
-        shapes = [params0[k].shape[1:] for k in keys]
-        sizes = [int(torch.Size(s).numel()) for s in shapes]
-
-        def unflatten(x):
-            return {k: p.reshape((x.shape[0],) + tuple(s))
-                    for k, p, s in zip(keys, torch.split(x, sizes, dim=1), shapes)}
-
+        x0, unflatten = _raveler(params0, 1)
+        L = x0.shape[0]
         calls = [0]
 
         def fun_on(rows):
-            """The closure on the lanes ``rows`` (None: all lanes in order)."""
+            """The closure and the prepare hook on the lanes ``rows`` (None:
+            all lanes in order)."""
             lane_w = lane if rows is None else {k: v[rows] for k, v in lane.items()}
 
-            def fun(x):
+            def fun(x, *aux):
                 calls[0] += 1
-                return self.fun(unflatten(x), lane_w, shared)
+                return self.fun(unflatten(x), lane_w, shared, *aux)
 
-            return fun
+            if self.prepare is None:
+                return fun, None
+            return fun, lambda x: self.prepare(unflatten(x), lane_w, shared)
 
-        x0 = torch.cat([params0[k].reshape(L, -1) for k in keys], dim=1).float()
+        def observe(rows, st):
+            if self.snapshot is not None:
+                self.snapshot(rows, st.n_iter.cpu().numpy(),
+                              {k: v.detach().cpu().numpy() for k, v in unflatten(st.x).items()})
+
         cap = self.opts.max_iter if self.iter_cap is None else min(self.opts.max_iter,
                                                                     int(self.iter_cap))
         if self.warmup_iter_cap is not None:
@@ -404,9 +513,11 @@ class BatchedLbfgs:
         W = self.width(L)
         refills = 0
         if W == L:
-            st, steps = lbfgs_run(fun_on(None), x0, self.opts, cap)
+            fun, prepare = fun_on(None)
+            st, steps = lbfgs_run(fun, x0, self.opts, cap, prepare,
+                                  on_segment=lambda st: observe(np.arange(L), st))
         else:
-            st, refills, steps = self._stream(fun_on, x0, L, W, cap)
+            st, refills, steps = self._stream(fun_on, observe, x0, L, W, cap)
         # one closure call per line-search evaluation and per pool chunk's
         # initial evaluation, plus the reference's extra count per iteration
         device_evals = W * (calls[0] + steps)
@@ -414,11 +525,9 @@ class BatchedLbfgs:
         self.last_run_stats = {"width": W, "lanes": L, "refills": refills,
                                "lane_evals": lane_evals, "device_evals": device_evals,
                                "ride_along_evals": max(device_evals - lane_evals, 0)}
-        result = LbfgsResult(x=st.x, f=st.f, grad_norm=st.g.abs().amax(-1),
-                             num_iters=st.n_iter, num_evals=st.n_evals)
-        return {k: v.detach() for k, v in unflatten(st.x).items()}, result
+        return {k: v.detach() for k, v in unflatten(st.x).items()}, _result(st)
 
-    def _stream(self, fun_on, x0: torch.Tensor, L: int, W: int, cap: int
+    def _stream(self, fun_on, observe, x0: torch.Tensor, L: int, W: int, cap: int
                 ) -> Tuple[LbfgsState, int, int]:
         """Refill-on-retire over a working set of W lanes (``lbfgs.py:704-829``).
         Returns the pool's final state, the number of refills and the number
@@ -427,7 +536,8 @@ class BatchedLbfgs:
         chunks = []
         for s in range(0, L, W):  # row j of chunk s is lane min(s + j, L - 1)
             rows = torch.as_tensor(np.clip(np.arange(s, s + W), 0, L - 1), device=dev)
-            chunks.append(lbfgs_init(fun_on(rows), x0[rows], self.opts))
+            fun, prepare = fun_on(rows)
+            chunks.append(lbfgs_init(fun, x0[rows], self.opts, prepare))
         pool = LbfgsState(*(t[:L] for t in _cat(chunks)))
         finished = np.zeros(L, bool)
 
@@ -447,21 +557,26 @@ class BatchedLbfgs:
 
         active = pick_active()
         rows = torch.as_tensor(active, device=dev)
-        ws, fun = _gather(pool, rows), fun_on(rows)
-        refills = steps = 0
+        ws, (fun, prepare) = _gather(pool, rows), fun_on(rows)
+        refills = steps = k = 0  # k: iterations of this working set
         while True:
             alive = (~ws.done) & (ws.n_iter < cap)
             finished[active[~alive.cpu().numpy()]] = True
-            if finished.all():
+            new_active = None if finished.all() else pick_active()
+            running = new_active is not None and np.array_equal(new_active, active)
+            if _segment_ends(k, running):
+                observe(active, ws)
+            if new_active is None:
                 return flush(pool, active, ws), refills, steps
-            new_active = pick_active()
-            if not np.array_equal(new_active, active):
+            if not running:
                 pool = flush(pool, active, ws)
                 active = new_active
                 rows = torch.as_tensor(active, device=dev)
-                ws, fun = _gather(pool, rows), fun_on(rows)
+                ws, (fun, prepare) = _gather(pool, rows), fun_on(rows)
                 refills += 1
+                k = 0
                 continue
-            new = lbfgs_step(fun, ws, self.opts)
+            new = lbfgs_step(fun, ws, self.opts, prepare)
             ws = LbfgsState(*(_sel(alive, a, b) for a, b in zip(new, ws)))
             steps += 1
+            k += 1
