@@ -108,6 +108,21 @@
    sequential run saves its iteration journal (``--save_iterations``),
    which must load with ``pickle`` alone and hold every stage, its L-BFGS
    segments at multiples of 50 iterations or a lane's last.
+13. Training phase: the six model families trained on the card into a
+   temporary directory (never ``checkpoints/``).  The four that
+   ``checkpoints/MANIFEST.json`` records run its recipe through
+   ``models/train.py`` (6000 steps at latent 128; the segmenters at batch
+   32, Pos2BC and PosDiff at 512, PosDiff on a pool of 65536) and are saved
+   with ``save_params``; the motion embedding and foot-contact nets train
+   through ``cli.train.main`` at its defaults (300 steps, batch 8).  Every
+   file is read back with ``load_params`` and ``convert.py``.  Gates
+   (``tests/test_demo_checkpoints.py``'s): unimodal accuracy >= MANIFEST's
+   majority baseline + 0.05 and >= 0.85 on the cmu_41 layout, multimodal
+   >= 0.70 and >= 0.95, Pos2BC <= 5 mm, PosDiff reduction >= 0.60; the
+   motion embedding's last 5 losses below ln 8 - 0.05 on average; the
+   foot-contact loss falling; every loss finite.  Prints steps per second,
+   wall time (the data pools included), first and last loss, and the gap to
+   MANIFEST's figures.
 
 The kernel phase also holds the forward at the root stage's part-chamfer
 shapes (4 sequences x 450 frames: the largest and the smallest part with
@@ -121,8 +136,9 @@ Prints each solve's launch counts as a ``{"<phase>_launches": {...}}`` line,
 then a ``{"kernels": [...]}`` line (launches from the full-surface phase,
 which runs every kernel), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Imports
-nothing of JAX.  On one H100 (700 W) the whole run took 820-837 s, the
-kernel build included, the host setting the spread (allow it 1200 s).
+nothing of JAX.  On one H100 (700 W) the whole run took 936.7-957.3 s, the
+kernel build and the training phase (54.7-59.7 s) included, the host
+setting the spread (allow it 1200 s).
 """
 from __future__ import annotations
 
@@ -1586,6 +1602,144 @@ def cli_phase():
     return counts
 
 
+# the training phase: checkpoints/MANIFEST.json's recipe (tools/
+# train_demo_checkpoints.py: 6000 steps at latent 128, the segmenters at batch
+# 32, Pos2BC and PosDiff at their own batch of 512, PosDiff on a pool of
+# 65536), and the CLI's defaults (300 steps, batch 8) for the two families
+# MANIFEST does not record.  The gates are tests/test_demo_checkpoints.py's
+# and, for the motion embedding, tests/test_models.py's margin below chance
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LATENT, POS_DIFF_POOL = 6000, 32, 128, 65536
+CLI_TRAIN_STEPS, CLI_TRAIN_BATCH = 300, 8
+EMBEDDING_MARGIN = 0.05  # below ln(batch): 2.0 against ln 8 = 2.079
+
+
+def training_phase(model):
+    """Trains the six model families on the card into a temporary directory
+    (never ``checkpoints/``, which the model phase reads): the four that
+    MANIFEST.json records through ``models/train.py`` at its recipe, each
+    saved with ``save_params`` (Pos2BC in float16, as the demo tool stores
+    it), and the motion embedding and foot-contact nets through the entry
+    point, ``cli.train.main``, at its defaults.  Every file is read back with
+    ``load_params`` and ``convert.py``; the four are scored by
+    ``models/heldout.py``.  Gates: every loss finite; unimodal accuracy >=
+    MANIFEST's majority baseline + 0.05 and cmu_41-layout accuracy >= 0.85;
+    multimodal >= 0.70 and >= 0.95; Pos2BC <= 5 mm; PosDiff reduction >=
+    0.60; the motion embedding's mean loss over its last 5 history entries
+    < ln(batch) - EMBEDDING_MARGIN; the foot-contact loss ending below its
+    start; the CLI's nets finite on a motion.  Prints each family's steps per
+    second, wall time, first and last loss, and the gap to MANIFEST's
+    figures."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch import convert
+    from uuo_mocap_tpu_torch.body.model import lbs_forward
+    from uuo_mocap_tpu_torch.cli import train as cli_train
+    from uuo_mocap_tpu_torch.data.synthetic import random_pose_sequence
+    from uuo_mocap_tpu_torch.models import heldout
+    from uuo_mocap_tpu_torch.models import train as T
+    from uuo_mocap_tpu_torch.models.checkpoints import load_params, save_params
+
+    with open(os.path.join(CHECKPOINTS, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    recipe = dict(steps=TRAIN_STEPS)
+    seg = dict(recipe, batch=TRAIN_BATCH, latent_dim=TRAIN_LATENT)
+    runs = (("marker_segmenter", lambda: T.train_marker_segmenter(model, **seg), np.float32),
+            ("marker_segmenter_multimodal",
+             lambda: T.train_marker_segmenter_multimodal(model, **seg), np.float32),
+            ("barycentric_coords/pos2bc", lambda: T.train_pos2bc(model, **recipe), np.float16),
+            ("barycentric_coords/pos_diff",
+             lambda: T.train_pos_diff(model, pool_n=POS_DIFF_POOL, **recipe), np.float32))
+
+    def cast(tree, dtype):
+        if isinstance(tree, dict):
+            return {k: cast(v, dtype) for k, v in tree.items()}
+        return tree.astype(dtype)
+
+    def report(name, hist, wall, steps):
+        require(len(hist) > 0 and all(math.isfinite(h) for h in hist), f"{name}: loss not finite")
+        print(f"train: {name}: {steps} steps in {wall:.1f} s ({steps / wall:.1f} steps/s), "
+              f"loss {hist[0]:.4f} -> {hist[-1]:.4f} ({len(hist)} history entries)", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        for name, train, dtype in runs:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            net, hist = train()
+            torch.cuda.synchronize()
+            report(name, hist, time.time() - t0, TRAIN_STEPS)
+            save_params(cast(convert.to_flax(net), dtype), root, name)
+            want = manifest[name].get("final_train_loss")
+            print(f"train: {name}: last loss {hist[-1]:.4f} (MANIFEST {want})", flush=True)
+        nets = {name: build(load_params(root, name), "cuda") for name, build in (
+            ("marker_segmenter", convert.marker_segmenter_from_flax),
+            ("marker_segmenter_multimodal", convert.marker_segmenter_multimodal_from_flax),
+            ("barycentric_coords/pos2bc", convert.pos2bc_from_flax),
+            ("barycentric_coords/pos_diff", convert.pos_diff_from_flax))}
+        base = manifest["marker_segmenter"]["majority_class_baseline"]
+        floors = {("marker_segmenter", None): base + 0.05,
+                  ("marker_segmenter", "cmu_41"): 0.85,
+                  ("marker_segmenter_multimodal", None): 0.70,
+                  ("marker_segmenter_multimodal", "cmu_41"): 0.95}
+        for (name, layout), floor in floors.items():
+            key = "held_out_accuracy_cmu41_layout" if layout else "held_out_accuracy"
+            acc = heldout.eval_segmenter(model, nets[name], name.endswith("multimodal"),
+                                         layout=layout)
+            want = manifest[name][key]
+            print(f"train: {name} {key} {acc:.4f} (gate >= {floor:.4f}; MANIFEST {want}, "
+                  f"gap {acc - want:+.4f})", flush=True)
+            require(acc >= floor, f"trained {name} {key} {acc:.4f} below {floor:.4f}")
+        err = heldout.eval_pos2bc(model, nets["barycentric_coords/pos2bc"])
+        want = manifest["barycentric_coords/pos2bc"]["held_out_expected_point_err_m"]
+        print(f"train: pos2bc expected-point error {err * 1e3:.3f} mm (gate <= 5 mm; MANIFEST "
+              f"{want * 1e3} mm, gap {(err - want) * 1e3:+.3f} mm)", flush=True)
+        require(err <= 0.005, f"trained Pos2BC error {err * 1e3:.3f} mm above 5 mm")
+        after, before = heldout.eval_pos_diff(model, nets["barycentric_coords/pos_diff"])
+        red = 1.0 - after / before
+        want = manifest["barycentric_coords/pos_diff"]["held_out_dist_reduction"]
+        print(f"train: pos_diff surface distance {before * 1e3:.3f} -> {after * 1e3:.3f} mm, "
+              f"reduction {red:.4f} (gate >= 0.60; MANIFEST {want}, gap {red - want:+.4f})",
+              flush=True)
+        require(red >= 0.60, f"trained PosDiff reduction {red:.4f} below 0.60")
+
+        hists = {}
+        for name in ("motion_embedding", "foot_contact"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            hists.update(cli_train.main([
+                "--models", name, "--steps", str(CLI_TRAIN_STEPS), "--batch", str(CLI_TRAIN_BATCH),
+                "--checkpoints", root, "--body_models", os.path.join(root, "no_body_models")]))
+            torch.cuda.synchronize()
+            report(f"cli.train {name}", hists[name], time.time() - t0, CLI_TRAIN_STEPS)
+        me = hists["motion_embedding"]
+        chance = math.log(CLI_TRAIN_BATCH)
+        tail = float(np.mean(me[-5:]))
+        print(f"train: motion_embedding mean of the last 5 losses {tail:.4f} (gate < "
+              f"{chance - EMBEDDING_MARGIN:.4f}, ln {CLI_TRAIN_BATCH} = {chance:.4f})", flush=True)
+        require(tail < chance - EMBEDDING_MARGIN, "the motion embedding stayed at chance")
+        fc = hists["foot_contact"]
+        require(fc[-1] < fc[0], f"foot contact loss {fc[0]:.4f} -> {fc[-1]:.4f} did not fall")
+        gt = random_pose_sequence(64, seed=heldout.HELD_OUT_SEED, device="cuda")
+        with torch.no_grad():
+            joints = lbs_forward(model, gt.pose_body, gt.betas, gt.root_orient,
+                                 gt.trans)["joints"][None, :, :22]
+            m_net = convert.motion_embedding_from_flax(
+                load_params(root, "motion_embedding/markers"), "cuda")
+            j_net = convert.motion_embedding_from_flax(
+                load_params(root, "motion_embedding/joints"), "cuda", joints=True)
+            fc_net = convert.foot_contact_from_flax(load_params(root, "foot_contact"), "cuda")
+            emb = torch.cat([m_net(joints[:, :16]), j_net(joints[:, :16])])
+            logits = fc_net(joints)
+        require(bool(torch.isfinite(emb).all() and torch.isfinite(logits).all())
+                and emb.shape == (2, 32) and logits.shape == (1, 64, 2),
+                "the CLI's checkpoints do not read back to finite nets of the right shapes")
+        require(bool(torch.allclose(emb.norm(dim=-1), torch.ones(2, device="cuda"), atol=1e-5)),
+                "the read-back embeddings are not unit vectors")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     import torch
@@ -1635,6 +1789,9 @@ def main() -> int:
         print(f"{name} phase: {time.time() - t0:.1f} s", flush=True)
     path_phase(model, gt, markers, prior)
     cli_phase()
+    t0 = time.time()
+    training_phase(model)
+    print(f"training phase: {time.time() - t0:.1f} s", flush=True)
     print(f"chip_smoke total: {time.time() - t_start:.1f} s", flush=True)
     src = "uuo_mocap_tpu_torch/csrc/chamfer.cu"
     table = [

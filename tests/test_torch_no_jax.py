@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``uuo_mocap_tpu_torch``
 (and ``chip_smoke.py``) loads none of ``jax``, ``uuo_mocap_tpu``, ``joblib``,
-``flax`` and ``msgpack`` (absent on the GPU machine), and its entry points
-refuse to run on the CPU unless asked to."""
+``flax``, ``msgpack`` and ``optax`` (absent on the GPU machine), and its entry
+points refuse to run on the CPU unless asked to."""
 import os
 
 os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")  # before torch loads OpenMP: see test_torch_batch_solver.py
@@ -24,7 +24,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "uuo_mocap_tpu", "joblib", "flax", "msgpack"))
+             if k.split(".")[0] in ("jax", "uuo_mocap_tpu", "joblib", "flax", "msgpack", "optax"))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
@@ -37,17 +37,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) >= 20  # every module was imported
     # imports inside functions too (the probe sees only those that run on import)
-    banned = re.compile(r"^\s*(from|import)\s+(jax|joblib|flax|msgpack|uuo_mocap_tpu)\b", re.M)
+    banned = re.compile(r"^\s*(from|import)\s+(jax|joblib|flax|msgpack|optax|uuo_mocap_tpu)\b",
+                        re.M)
     sources = glob.glob(os.path.join(REPO, "uuo_mocap_tpu_torch", "**", "*.py"), recursive=True)
     offenders = [p for p in sources + [os.path.join(REPO, "chip_smoke.py")]
                  if banned.search(open(p).read())]
     assert len(sources) >= 20 and not offenders, offenders
 
 
-def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked():
+def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     from uuo_mocap_tpu_torch.body.synthetic import synthetic_body_model
+    from uuo_mocap_tpu_torch.cli import train as cli_train
     from uuo_mocap_tpu_torch.data.synthetic import random_pose_sequence
     from uuo_mocap_tpu_torch.device import resolve_device
     from uuo_mocap_tpu_torch.pipeline.multimodal import multimodal_video_mocap
@@ -61,4 +63,8 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked():
     model = synthetic_body_model(device="cpu")
     with pytest.raises(RuntimeError):
         multimodal_video_mocap(None, None, {}, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_train.main(["--models", "foot_contact", "--steps", "1", "--checkpoints",
+                        str(tmp_path / "ck")])
+    assert not os.path.exists(tmp_path / "ck")
     assert resolve_device("cpu").type == "cpu"

@@ -21,6 +21,14 @@ def get_joint_id(name: str) -> int:
     return SMPL_JOINT_NAMES.index(name)
 
 
+def get_joint_name(joint_id: int) -> str:
+    return SMPL_JOINT_NAMES[joint_id]
+
+
+def get_all_joint_ids() -> List[int]:
+    return list(range(len(SMPL_JOINT_NAMES)))
+
+
 SMPL_LIMBS: Dict[str, List[int]] = {
     "head": [get_joint_id("head")],
     "left_arm": [get_joint_id(n) for n in ("left_shoulder", "left_elbow", "left_wrist", "left_hand")],

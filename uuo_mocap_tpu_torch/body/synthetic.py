@@ -197,3 +197,19 @@ def synthetic_body_model(device=None, gender: str = "neutral") -> BodyModel:
     from uuo_mocap_tpu_torch.convert import body_model_from_numpy
 
     return body_model_from_numpy(_build_arrays(gender), device=device, gender=gender)
+
+
+def export_synthetic_npz(path: str, gender: str = "neutral") -> str:
+    """Write the synthetic model in the npz schema ``load_body_model`` reads
+    (the SMPL pickles' field names; posedirs [V, 3, 207])."""
+    arrs = _build_arrays(gender)
+    np.savez(
+        path,
+        v_template=arrs["v_template"],
+        shapedirs=arrs["shapedirs"],
+        posedirs=arrs["posedirs"].T.reshape(NUM_VERTICES, 3, -1),
+        J_regressor=arrs["j_regressor"],
+        weights=arrs["lbs_weights"],
+        f=arrs["faces"],
+    )
+    return path

@@ -7,10 +7,13 @@ device, so both packages can be held to the same tensors.
 The ``*_from_flax`` functions take a flax variables tree of numpy arrays
 ({"params": {...}}, as ``models.checkpoints.load_params`` returns it or a
 flax ``init`` makes it) and build the port's module on a device, for
-inference (eval mode, no parameter gradients).  flax names a module's
-layers by type in the order they are created, not called: in each
-attention block the outer Dense of ``Dense(D)(relu(Dense(2D)(x)))`` is
-created first, so ``Dense_{k}`` is the 2D -> D layer applied second and
+inference (eval mode, no parameter gradients) or, with ``trainable=True``,
+for training.  ``to_flax`` goes back: any of these modules -> its flax
+variables tree, which the JAX package's ``load_params`` restores.  Both
+directions read one layout per module: its flax names beside its layers.
+flax names a module's layers by type in the order they are created, not
+called: in ``Dense(D)(relu(Dense(2D)(x)))`` the outer Dense is created
+first, so ``Dense_{k}`` is the 2D -> D layer applied second and
 ``Dense_{k+1}`` the D -> 2D layer applied first.  flax ``Dense.kernel`` is
 [in, out] (torch: [out, in]); ``Conv.kernel`` is [k, in, out] (torch:
 [out, in, k]); attention's query / key / value kernels are [D, H, Dh] with
@@ -18,7 +21,7 @@ biases [H, Dh], its output kernel [H, Dh, D].
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ from torch import nn
 
 from uuo_mocap_tpu_torch.body.model import PARENTS, BodyModel
 from uuo_mocap_tpu_torch.device import resolve_device
+from uuo_mocap_tpu_torch.models.marker_segmenter import AttentionBlock, SelfAttention
 from uuo_mocap_tpu_torch.pipeline.stages import SmplParams
 
 BODY_MODEL_ARRAYS = ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights")
@@ -73,25 +77,126 @@ def _copy(param: torch.Tensor, value: np.ndarray) -> None:
     param.data.copy_(value)
 
 
-def _dense(layer: nn.Linear, p: Mapping[str, Any]) -> None:
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _dense_from(layer: nn.Linear, p: Mapping[str, Any]) -> None:
     """flax Dense / DenseGeneral (kernel [in..., out...]) -> torch Linear."""
     kernel = np.asarray(p["kernel"])
     _copy(layer.weight, kernel.reshape(layer.in_features, layer.out_features).T)
     _copy(layer.bias, np.asarray(p["bias"]).reshape(-1))
 
 
-def _conv(layer: nn.Conv1d, p: Mapping[str, Any]) -> None:
-    _copy(layer.weight, np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
-    _copy(layer.bias, p["bias"])
+def _dense_to(layer: nn.Linear, kernel_shape=None, bias_shape=None) -> Dict[str, np.ndarray]:
+    kernel = _numpy(layer.weight).T
+    bias = _numpy(layer.bias)
+    return {"kernel": kernel.reshape(kernel_shape or kernel.shape),
+            "bias": bias.reshape(bias_shape or bias.shape)}
 
 
-def _layer_norm(layer: nn.LayerNorm, p: Mapping[str, Any]) -> None:
-    _copy(layer.weight, p["scale"])
-    _copy(layer.bias, p["bias"])
+def _attention_to(attn: SelfAttention) -> Dict[str, Any]:
+    heads = (attn.num_heads, attn.head_dim)
+    out = {name: _dense_to(getattr(attn, name), (getattr(attn, name).in_features,) + heads, heads)
+           for name in ("query", "key", "value")}
+    out["out"] = _dense_to(attn.out, heads + (attn.out.out_features,))
+    return out
 
 
-def _inference(module: nn.Module, device) -> nn.Module:
-    return module.to(resolve_device(device)).eval().requires_grad_(False)
+def _attention_from(attn: SelfAttention, p: Mapping[str, Any]) -> None:
+    heads = np.shape(p["query"]["kernel"])[1]
+    if heads != attn.num_heads:
+        raise ValueError(f"checkpoint attention has {heads} heads, the module {attn.num_heads}")
+    for name in ("query", "key", "value", "out"):
+        _dense_from(getattr(attn, name), p[name])
+
+
+def _layer_from(layer: nn.Module, p: Mapping[str, Any]) -> None:
+    if isinstance(layer, nn.Linear):
+        _dense_from(layer, p)
+    elif isinstance(layer, nn.Conv1d):
+        _copy(layer.weight, np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
+        _copy(layer.bias, p["bias"])
+    elif isinstance(layer, nn.LayerNorm):
+        _copy(layer.weight, p["scale"])
+        _copy(layer.bias, p["bias"])
+    else:
+        _attention_from(layer, p)
+
+
+def _layer_to(layer: nn.Module) -> Dict[str, Any]:
+    if isinstance(layer, nn.Linear):
+        return _dense_to(layer)
+    if isinstance(layer, nn.Conv1d):
+        return {"kernel": np.ascontiguousarray(np.transpose(_numpy(layer.weight), (2, 1, 0))),
+                "bias": _numpy(layer.bias)}
+    if isinstance(layer, nn.LayerNorm):
+        return {"scale": _numpy(layer.weight), "bias": _numpy(layer.bias)}
+    return _attention_to(layer)
+
+
+Layout = List[Tuple[str, nn.Module]]
+
+
+def _block_layout(block: AttentionBlock, b: int, first_dense: int) -> Layout:
+    """An attention block's layers, the b-th block of its module, whose
+    first Dense is ``Dense_{first_dense}`` (created before its input layer)."""
+    return [(f"SelfAttention_{b}", block.attn), (f"LayerNorm_{2 * b}", block.norm0),
+            (f"Dense_{first_dense + 2 * b}", block.ff_out),
+            (f"Dense_{first_dense + 1 + 2 * b}", block.ff_in),
+            (f"LayerNorm_{2 * b + 1}", block.norm1)]
+
+
+def _segmenter_layout(module) -> Layout:
+    """Both segmenters: the multimodal net's Dense_1 (3 J -> D) and Conv_3
+    are its joint branch, so its fusion Dense is Dense_2, not Dense_1."""
+    from uuo_mocap_tpu_torch.models.marker_segmenter_multimodal import MarkerSegmenterMultimodal
+
+    layout = [("Dense_0", module.embed)] + [(f"Conv_{i}", c) for i, c in enumerate(module.convs)]
+    fuse = 1
+    if isinstance(module, MarkerSegmenterMultimodal):
+        layout += [("Dense_1", module.joint_embed), ("Conv_3", module.joint_conv)]
+        fuse = 2
+    layout.append((f"Dense_{fuse}", module.fuse))
+    for b, block in enumerate(module.blocks):
+        layout += _block_layout(block, b, fuse + 1)
+    return layout + [(f"Dense_{fuse + 5}", module.head), (f"Dense_{fuse + 6}", module.classify)]
+
+
+def _layout(module: nn.Module) -> Layout:
+    from uuo_mocap_tpu_torch.models.foot_contact_model import FootContactModel
+    from uuo_mocap_tpu_torch.models.marker_segmenter import MarkerSegmenter
+    from uuo_mocap_tpu_torch.models.marker_tracking import (
+        MarkerTrackingAttention, PermutationLearningModel)
+    from uuo_mocap_tpu_torch.models.motion_embedding import _WindowEncoder
+    from uuo_mocap_tpu_torch.models.pos2bc import Pos2BC
+    from uuo_mocap_tpu_torch.models.pos_diff import PosDiff
+
+    if isinstance(module, MarkerSegmenter):
+        return _segmenter_layout(module)
+    if isinstance(module, (Pos2BC, PosDiff)):
+        return [(f"Dense_{i}", getattr(module, f"fc{i}")) for i in range(3)]
+    if isinstance(module, FootContactModel):
+        return [(f"Conv_{i}", c) for i, c in enumerate(module.convs)] + [("Dense_0", module.head)]
+    if isinstance(module, _WindowEncoder):  # out = Dense(32)(relu(Dense(D)(h))): out first
+        return [("Dense_0", module.point_in), ("Dense_1", module.point_out),
+                ("Conv_0", module.convs[0]), ("Conv_1", module.convs[1]),
+                ("Dense_2", module.out), ("Dense_3", module.head)]
+    if isinstance(module, PermutationLearningModel):
+        return [("Dense_0", module.embed), ("Dense_1", module.residual),
+                ("Dense_2", module.scores)]
+    if isinstance(module, MarkerTrackingAttention):
+        layout = [("Dense_0", module.embed)]
+        for b, block in enumerate(module.blocks):
+            layout += _block_layout(block, b, 1)
+        return layout + [(f"Dense_{1 + 2 * len(module.blocks)}", module.classify)]
+    raise TypeError(f"no flax layout for {type(module).__name__}")
+
+
+def to_flax(module: nn.Module) -> Dict[str, Any]:
+    """Any module these builders make -> its flax variables tree
+    ({"params": {...}} of float32 numpy arrays, flax's names and shapes)."""
+    return {"params": {name: _layer_to(layer) for name, layer in _layout(module)}}
 
 
 def _params(variables: Mapping[str, Any]) -> Mapping[str, Any]:
@@ -101,72 +206,94 @@ def _params(variables: Mapping[str, Any]) -> Mapping[str, Any]:
     return variables["params"]
 
 
-def _segmenter_from_flax(module, p: Mapping[str, Any], fuse_index: int) -> None:
-    """The layers both segmenters share; ``fuse_index`` is the fusion
-    Dense's index (1 in the marker-only net, 2 in the multimodal one, whose
-    Dense_1 embeds the joints)."""
-    _dense(module.embed, p["Dense_0"])
-    for i, conv in enumerate(module.convs):
-        _conv(conv, p[f"Conv_{i}"])
-    _dense(module.fuse, p[f"Dense_{fuse_index}"])
-    for b, block in enumerate(module.blocks):
-        att = p[f"SelfAttention_{b}"]
-        for name in ("query", "key", "value", "out"):
-            _dense(getattr(block.attn, name), att[name])
-        _layer_norm(block.norm0, p[f"LayerNorm_{2 * b}"])
-        _dense(block.ff_out, p[f"Dense_{fuse_index + 1 + 2 * b}"])  # created first
-        _dense(block.ff_in, p[f"Dense_{fuse_index + 2 + 2 * b}"])
-        _layer_norm(block.norm1, p[f"LayerNorm_{2 * b + 1}"])
-    _dense(module.head, p[f"Dense_{fuse_index + 5}"])
-    _dense(module.classify, p[f"Dense_{fuse_index + 6}"])
+def from_flax(module: nn.Module, variables: Mapping[str, Any], device=None,
+              trainable: bool = False) -> nn.Module:
+    """``module`` (already built at the tree's widths) with the variables
+    tree's weights, on ``device``; frozen in eval mode unless ``trainable``."""
+    p = _params(variables)
+    layout = _layout(module)
+    missing = sorted({name for name, _ in layout} - set(p))
+    if missing:
+        raise ValueError(f"flax params lack {missing} for {type(module).__name__}")
+    for name, layer in layout:
+        _layer_from(layer, p[name])
+    module = module.to(resolve_device(device))
+    return module.train().requires_grad_(True) if trainable else module.eval().requires_grad_(False)
 
 
-def marker_segmenter_from_flax(variables: Mapping[str, Any], device=None):
+def _shape(p: Mapping[str, Any], name: str) -> Tuple[int, ...]:
+    return tuple(int(d) for d in np.shape(p[name]["kernel"]))
+
+
+def marker_segmenter_from_flax(variables: Mapping[str, Any], device=None, trainable: bool = False):
     """A ``MarkerSegmenter`` from its flax variables (width and classes read
     from the kernels)."""
     from uuo_mocap_tpu_torch.models.marker_segmenter import MarkerSegmenter
 
     p = _params(variables)
-    D = int(np.shape(p["Dense_0"]["kernel"])[1])
-    module = MarkerSegmenter(D, int(np.shape(p["Dense_7"]["kernel"])[1]))
-    _segmenter_from_flax(module, p, fuse_index=1)
-    return _inference(module, device)
+    module = MarkerSegmenter(_shape(p, "Dense_0")[1], _shape(p, "Dense_7")[1])
+    return from_flax(module, variables, device, trainable)
 
 
-def marker_segmenter_multimodal_from_flax(variables: Mapping[str, Any], device=None):
-    """A ``MarkerSegmenterMultimodal`` from its flax variables; Dense_1
-    (3 J -> D) and Conv_3 are the joint branch."""
+def marker_segmenter_multimodal_from_flax(variables: Mapping[str, Any], device=None,
+                                          trainable: bool = False):
     from uuo_mocap_tpu_torch.models.marker_segmenter_multimodal import MarkerSegmenterMultimodal
 
     p = _params(variables)
-    D = int(np.shape(p["Dense_0"]["kernel"])[1])
-    joints_in = int(np.shape(p["Dense_1"]["kernel"])[0])
-    module = MarkerSegmenterMultimodal(D, int(np.shape(p["Dense_8"]["kernel"])[1]),
-                                       num_joints=joints_in // 3)
-    _segmenter_from_flax(module, p, fuse_index=2)
-    _dense(module.joint_embed, p["Dense_1"])
-    _conv(module.joint_conv, p["Conv_3"])
-    return _inference(module, device)
+    module = MarkerSegmenterMultimodal(_shape(p, "Dense_0")[1], _shape(p, "Dense_8")[1],
+                                       num_joints=_shape(p, "Dense_1")[0] // 3)
+    return from_flax(module, variables, device, trainable)
 
 
-def pos2bc_from_flax(variables: Mapping[str, Any], device=None):
+def pos2bc_from_flax(variables: Mapping[str, Any], device=None, trainable: bool = False):
     from uuo_mocap_tpu_torch.models.pos2bc import Pos2BC
 
     p = _params(variables)
-    shapes = [np.shape(p[f"Dense_{i}"]["kernel"]) for i in range(3)]
-    module = Pos2BC(hidden=int(shapes[0][1]), wide=int(shapes[1][1]),
-                    num_vertices=int(shapes[2][1]))
-    for i in range(3):
-        _dense(getattr(module, f"fc{i}"), p[f"Dense_{i}"])
-    return _inference(module, device)
+    shapes = [_shape(p, f"Dense_{i}") for i in range(3)]
+    module = Pos2BC(hidden=shapes[0][1], wide=shapes[1][1], num_vertices=shapes[2][1])
+    return from_flax(module, variables, device, trainable)
 
 
-def pos_diff_from_flax(variables: Mapping[str, Any], device=None):
+def pos_diff_from_flax(variables: Mapping[str, Any], device=None, trainable: bool = False):
     from uuo_mocap_tpu_torch.models.pos_diff import PosDiff
 
+    d_in, hidden = _shape(_params(variables), "Dense_0")
+    module = PosDiff(hidden=hidden, num_freqs=(d_in // 3 - 1) // 2)
+    return from_flax(module, variables, device, trainable)
+
+
+def foot_contact_from_flax(variables: Mapping[str, Any], device=None, trainable: bool = False):
+    from uuo_mocap_tpu_torch.models.foot_contact_model import FootContactModel
+
+    _, d_in, latent = _shape(_params(variables), "Conv_0")
+    return from_flax(FootContactModel(latent, d_in // 3), variables, device, trainable)
+
+
+def motion_embedding_from_flax(variables: Mapping[str, Any], device=None,
+                               trainable: bool = False, joints: bool = False):
+    """A ``MarkerEmbedding`` (or, with ``joints``, a ``JointEmbedding``)."""
+    from uuo_mocap_tpu_torch.models.motion_embedding import JointEmbedding, MarkerEmbedding
+
     p = _params(variables)
-    d_in, hidden = np.shape(p["Dense_0"]["kernel"])
-    module = PosDiff(hidden=int(hidden), num_freqs=(int(d_in) // 3 - 1) // 2)
-    for i in range(3):
-        _dense(getattr(module, f"fc{i}"), p[f"Dense_{i}"])
-    return _inference(module, device)
+    cls = JointEmbedding if joints else MarkerEmbedding
+    module = cls(_shape(p, "Dense_0")[1], _shape(p, "Dense_2")[1])
+    return from_flax(module, variables, device, trainable)
+
+
+def permutation_model_from_flax(variables: Mapping[str, Any], device=None,
+                                trainable: bool = False):
+    from uuo_mocap_tpu_torch.models.marker_tracking import PermutationLearningModel
+
+    d_in, latent = _shape(_params(variables), "Dense_0")
+    return from_flax(PermutationLearningModel(d_in // 3, latent), variables, device, trainable)
+
+
+def marker_tracking_attention_from_flax(variables: Mapping[str, Any], device=None,
+                                        trainable: bool = False):
+    from uuo_mocap_tpu_torch.models.marker_tracking import MarkerTrackingAttention
+
+    p = _params(variables)
+    layers = sum(1 for k in p if k.startswith("SelfAttention_"))
+    module = MarkerTrackingAttention(_shape(p, "Dense_0")[1], layers,
+                                     _shape(p, f"Dense_{1 + 2 * layers}")[1])
+    return from_flax(module, variables, device, trainable)

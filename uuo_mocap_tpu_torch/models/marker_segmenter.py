@@ -73,8 +73,19 @@ class AttentionBlock(nn.Module):
 
 
 def temporal_conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """relu(conv) over the frame axis of feature-last x [B, F, D]."""
-    return torch.relu(conv(x.transpose(1, 2))).transpose(1, 2)
+    """relu(conv) over the frame axis of feature-last x [B, F, D] (odd k,
+    padded SAME).  While the weights take gradients it runs as one GEMM of
+    the k shifted copies of x: on an H100 cuDNN's FP32 weight gradient at
+    a segmenter's training shapes (an FFT algorithm) took 14 ms of a 16.5
+    ms step, where the whole step takes 2.2 ms in the GEMM form (PERF.md,
+    PR 9).  Inference keeps cuDNN's convolution."""
+    if not (torch.is_grad_enabled() and conv.weight.requires_grad):
+        return torch.relu(conv(x.transpose(1, 2))).transpose(1, 2)
+    k, F = conv.kernel_size[0], x.shape[1]
+    xp = nn.functional.pad(x, (0, 0, k // 2, k // 2))
+    cols = torch.cat([xp[:, j:j + F] for j in range(k)], dim=-1)  # [B, F, k D]
+    w = conv.weight.permute(0, 2, 1).reshape(conv.out_channels, -1)  # [out, k in]
+    return torch.relu(nn.functional.linear(cols, w, conv.bias))
 
 
 def windowed_softmax(net: nn.Module, streams: Sequence[torch.Tensor], freq: float,

@@ -1,12 +1,14 @@
-"""Read the msgpack files that ``flax.serialization.to_bytes`` writes,
-without flax or msgpack.
+"""Read and write the msgpack files that ``flax.serialization.to_bytes``
+writes, without flax or msgpack.
 
 ``to_bytes`` packs a nested state dict with ``msgpack.packb``: maps with
 str keys, and every array leaf as an extension of type 1 whose payload is
 itself a packed ``(shape, dtype name, C-order bytes)``.  ``unpackb``
 decodes exactly those types: maps, str, bin, ints, arrays and the ndarray
 extension.  Any other type raises ``ValueError`` naming it (flax writes no
-other for a params tree).
+other for a params tree).  ``packb`` writes them, each in msgpack's
+shortest form, as ``msgpack.packb`` does, so its bytes equal ``to_bytes``'s
+for the same tree.
 """
 from __future__ import annotations
 
@@ -115,3 +117,75 @@ def unpackb(data: bytes) -> Any:
     if end != len(buf):
         raise ValueError(f"{len(buf) - end} trailing bytes after the msgpack object")
     return obj
+
+
+def _pack_uint(n: int, fix_max: int, fix_base: int, codes) -> bytes:
+    """The shortest header for a length or count ``n``: a fix form below
+    ``fix_max``, else the first of ``codes`` (1-, 2-, 4-byte fields; None
+    where msgpack has no such form) that holds it."""
+    if n < fix_max:
+        return bytes([fix_base | n])
+    for code, size in zip(codes, (1, 2, 4)):
+        if code is not None and n < 1 << (8 * size):
+            return bytes([code]) + n.to_bytes(size, "big")
+    raise ValueError(f"msgpack length {n} is too large")
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n < 0x80 or -32 <= n < 0:
+        return struct.pack(">b" if n < 0 else ">B", n)
+    if n >= 0:
+        for code, fmt in ((0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"), (0xcf, ">Q")):
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([code]) + struct.pack(fmt, n)
+    for code, fmt in ((0xd0, ">b"), (0xd1, ">h"), (0xd2, ">i"), (0xd3, ">q")):
+        if n >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"integer {n} does not fit msgpack's 64 bits")
+
+
+_EXT_FIXED = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+
+
+def _pack(obj: Any, out: list) -> None:
+    if isinstance(obj, dict):
+        out.append(_pack_uint(len(obj), 16, 0x80, (None, 0xde, 0xdf)))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise ValueError(f"map key {k!r} is not a str")
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_pack_uint(len(obj), 16, 0x90, (None, 0xdc, 0xdd)))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out += [_pack_uint(len(raw), 32, 0xa0, (0xd9, 0xda, 0xdb)), raw]
+    elif isinstance(obj, bytes):
+        out += [_pack_uint(len(obj), 0, 0, (0xc4, 0xc5, 0xc6)), obj]
+    elif isinstance(obj, (int, np.integer)) and not isinstance(obj, bool):
+        out.append(_pack_int(int(obj)))
+    elif isinstance(obj, np.ndarray):
+        if obj.nbytes > 1 << 30:
+            raise ValueError("arrays over 1 GiB are chunked by flax, and not written here")
+        if obj.dtype.hasobject or obj.dtype.isalignedstruct:
+            raise ValueError(f"dtype {obj.dtype} cannot be written")
+        data = packb((obj.shape, obj.dtype.name, obj.tobytes("C")))
+        if len(data) in _EXT_FIXED:
+            out.append(bytes([_EXT_FIXED[len(data)]]))
+        else:
+            out.append(_pack_uint(len(data), 0, 0, (0xc7, 0xc8, 0xc9)))
+        out += [struct.pack(">b", _EXT_NDARRAY), data]
+    else:
+        raise ValueError(f"cannot write {type(obj).__name__} (a flax params file holds maps, "
+                         "str, ints and arrays)")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode a flax state dict (nested str-keyed dicts of numpy arrays;
+    tuples, str, bytes and ints inside) as ``flax.serialization.to_bytes``
+    does.  Arrays over flax's 1 GiB chunk size are not split: they raise."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)

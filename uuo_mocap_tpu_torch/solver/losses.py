@@ -1,8 +1,8 @@
 """Loss terms of the staged solve (counterpart of
-``uuo_mocap_tpu/solver/losses.py``; its training loss ``soft_cross_entropy``
-comes with the models).
+``uuo_mocap_tpu/solver/losses.py``).
 
-Every term is per lane: its first argument carries a leading lane axis
+Every term of the solve is per lane (``soft_cross_entropy``, a training
+loss, is not): its first argument carries a leading lane axis
 [L, ...], the other arguments are either lane-batched too or shared
 (broadcast over lanes), and the result is [L].  Frame masks follow the same
 rule: ``frame_valid`` is [F] (one sequence shared by every lane) or [L, F]
@@ -139,6 +139,16 @@ def velocity_loss(trans, markers_subset_mean, frame_valid: Optional[torch.Tensor
     if frame_valid is None:
         return mse(trans_vel, m_vel)
     return _masked_mean((trans_vel - m_vel) ** 2, _vel_mask(frame_valid))
+
+
+def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor) -> torch.Tensor:
+    """KL divergence against soft targets, summed and divided by the batch
+    size ``logits.shape[0]`` (a training loss, not per lane): entries whose
+    target is 0 add nothing."""
+    logp = torch.log_softmax(logits, dim=-1)
+    per = torch.where(target_probs > 0, target_probs * (
+        torch.log(torch.clamp_min(target_probs, 1e-12)) - logp), torch.zeros_like(logp))
+    return per.sum() / logits.shape[0]
 
 
 def weighted_mse(input, target, weights):
