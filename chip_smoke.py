@@ -103,12 +103,32 @@
    same stage with ``single_directional: false`` and the dense branch's
    ``part_chamfer`` and ``ground`` terms, the path that differentiates
    min_sqdist and so launches the backward kernel) runs a few iterations.
-12. CLI phase: the user's entry points in a temporary directory (export,
+12. Preprocess phase (host code): a raw capture at the size of a
+   CMU-kitchen session (5 min at 120 Hz, 45 markers prefixed with the
+   subject, 5 % of cells zero-filled, made from SEED) through
+   ``cli.preprocess_datasets.run_dataset("cmu_kitchen", remove_backpack=
+   True, parts=all three)`` at 15 s windows at 30 Hz.  Gates: 20 windows of
+   450 frames for the whole body and for each part, the labels the
+   subject's minus the backpack's, every window's points the raw capture's
+   at ``get_downsampled_indices`` in metres within float32 rounding, the
+   native and the Python parser equal; ``slice_gt_to_windows`` on a 300 s
+   npz gives 20 windows of 450 frames.  Prints the wall time of
+   ``run_dataset`` and the parse time per window.
+13. CLI phase: the user's entry points in a temporary directory (export,
    ``cli.test --batch 4`` and sequential on 80 frames, ``eval.comparisons``); the
    sequential run saves its iteration journal (``--save_iterations``),
    which must load with ``pickle`` alone and hold every stage, its L-BFGS
-   segments at multiples of 50 iterations or a lane's last.
-13. Training phase: the six model families trained on the card into a
+   segments at multiples of 50 iterations or a lane's last.  On the four
+   solved 450 x 41 sequences it runs the tools (``tools_checks``):
+   ``cli.filter`` (same shapes, less frame-to-frame jitter),
+   ``cli.export_marker_layout`` on the card and with ``--cpu_only`` (the PLY
+   header counts V + 6M vertices and F + 8M faces; finite distances; per
+   marker the same face, or a tie at the same closest point and template
+   position, within 1e-5 m; distances within 1e-5 m) and
+   ``eval.qualitative``'s device half (``posed_vertices``) for the ground
+   truth and the solve at 90 frames, finite and within 1e-5 m of the CPU.
+   The renderer is not called: the GPU machine has no matplotlib.
+14. Training phase: the six model families trained on the card into a
    temporary directory (never ``checkpoints/``).  The four that
    ``checkpoints/MANIFEST.json`` records run its recipe through
    ``models/train.py`` (6000 steps at latent 128; the segmenters at batch
@@ -1399,6 +1419,8 @@ CLI_METHODS = ("moshpp", "hmr", "video_mocap")
 # time limit (150 until the reprojection and ranking-variant phases came; its
 # part tournament took 136 of 210 s there, PERF.md)
 CLI_SEQ_FRAMES = 80
+QUAL_MAX_FRAMES = 90  # eval.qualitative's default
+LAYOUT_TOL_M = 1e-5  # export_marker_layout and posed vertices, the card against the CPU
 
 
 def _timed(owner, name, timers, key, sync=True):
@@ -1477,6 +1499,192 @@ def check_journal(path):
     print(f"cli: journal {os.path.basename(path)}: {os.path.getsize(path)} bytes, loaded in "
           f"{load_s * 1e3:.1f} ms; entries {sorted(entries)}; segments, last iterations per lane "
           f"{summary}", flush=True)
+
+
+# the preprocess phase: a raw capture at the size of one CMU-kitchen session
+# (5 min at 120 Hz, in mm), one subject's labels prefixed "<subject>:": the
+# backpack rig, every marker of the three part lists, head and torso markers
+PREPROCESS_SECONDS, PREPROCESS_RATE, PREPROCESS_ZERO_SHARE = 300, 120.0, 0.05
+PREPROCESS_SUBJECT, PREPROCESS_SEQ = "S07", "brownie"
+PREPROCESS_EXTRA_LABELS = ("LFHD", "RFHD", "LBHD", "RBHD", "C7", "CLAV", "STRN", "RBAK", "RFWT",
+                           "RSHO", "LASI", "RASI", "LPSI", "RPSI", "T12")
+
+
+def preprocess_phase():
+    """``cli.preprocess_datasets.run_dataset("cmu_kitchen", remove_backpack=
+    True, parts=all three)`` on the raw capture above, at the default 15 s
+    windows at 30 Hz, then ``slice_gt_to_windows`` on a 300 s npz.  Host code
+    from end to end (numpy and the native c3d parser).  Gates: 20 windows of
+    450 frames under ``cmu_kitchen_pilot_rb/mocap/<subject>/`` and under each
+    part's ``mocap_parts___<part>/<subject>/``; the labels the subject's minus
+    the backpack's (a part's: the table's, in capture order); every window's
+    points the raw capture's at ``get_downsampled_indices``, in metres, within
+    float32 rounding; the native and the pure-Python parser read the same
+    points; 20 ground-truth windows of 450 frames."""
+    import tempfile
+
+    import numpy as np
+
+    from uuo_mocap_tpu_torch.cli.preprocess_datasets import run_dataset
+    from uuo_mocap_tpu_torch.data import c3d_native
+    from uuo_mocap_tpu_torch.data.c3d import read_c3d, write_c3d
+    from uuo_mocap_tpu_torch.data.dataset_tables import (CMU_KITCHEN_BACKPACK_LABELS,
+                                                        CMU_KITCHEN_BODY_PARTS)
+    from uuo_mocap_tpu_torch.data.preprocess import get_downsampled_indices, slice_gt_to_windows
+
+    parts = list(CMU_KITCHEN_BODY_PARTS)
+    names = list(dict.fromkeys([*CMU_KITCHEN_BACKPACK_LABELS,
+                                *(l for p in parts for l in CMU_KITCHEN_BODY_PARTS[p]),
+                                *PREPROCESS_EXTRA_LABELS]))
+    F, M = int(PREPROCESS_SECONDS * PREPROCESS_RATE), len(names)
+    rng = np.random.RandomState(SEED)
+    # markers around a body-sized cloud, drifting smoothly, 5 % of cells zero
+    raw = (rng.uniform([-300, -300, 0], [300, 300, 1800], (1, M, 3))
+           + np.cumsum(rng.randn(F, 1, 3) * 2.0, axis=0) + rng.randn(F, M, 3) * 0.5).astype(np.float32)
+    raw[rng.rand(F, M) < PREPROCESS_ZERO_SHARE] = 0.0
+    kept = [i for i, n in enumerate(names) if n not in CMU_KITCHEN_BACKPACK_LABELS]
+    t0 = time.time()
+    c3d_native.build()  # before the timed run: its first use compiles it
+    print(f"preprocess: native c3d library build {time.time() - t0:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preprocess_") as d:
+        src = os.path.join(d, "raw", PREPROCESS_SUBJECT, PREPROCESS_SEQ + ".c3d")
+        os.makedirs(os.path.dirname(src))
+        t0 = time.time()
+        write_c3d(src, raw, rate=PREPROCESS_RATE, units="mm",
+                  labels=[f"{PREPROCESS_SUBJECT}:{n}" for n in names])
+        write_s = time.time() - t0
+        t0 = time.time()
+        count = run_dataset("cmu_kitchen", os.path.join(d, "raw"), os.path.join(d, "out"),
+                            parts=parts, remove_backpack=True)
+        run_s = time.time() - t0
+        idx = get_downsampled_indices(F, PREPROCESS_RATE, 30.0)
+        want_all = raw[idx].astype(np.float64) / 1000.0  # the exact metres of each kept frame
+        win = 15 * 30
+        n_win = -(-len(idx) // win)
+        require(n_win == 20 and count == 4 * n_win, f"{count} windows written, {len(idx)} frames")
+        base = os.path.join(d, "out", "cmu_kitchen_pilot_rb")
+        variants = [("mocap", kept)] + [
+            (f"mocap_parts___{p}", [i for i in kept if names[i] in CMU_KITCHEN_BODY_PARTS[p]])
+            for p in parts]
+        parse_s, max_err, n_files = 0.0, 0.0, 0
+        for sub, cols in variants:
+            files = sorted(os.listdir(os.path.join(base, sub, PREPROCESS_SUBJECT)))
+            require(files == [f"{PREPROCESS_SEQ}_{w * win:08d}.c3d" for w in range(n_win)],
+                    f"{sub}: files {files[:3]}... ({len(files)})")
+            for w, fname in enumerate(files):
+                path = os.path.join(base, sub, PREPROCESS_SUBJECT, fname)
+                t0 = time.time()
+                got = read_c3d(path)  # the native parser
+                parse_s += time.time() - t0
+                py = read_c3d(path, use_native=False)
+                require(np.array_equal(got["points"], py["points"]) and got["labels"] == py["labels"],
+                        f"{sub}/{fname}: the native and the Python parser differ")
+                require(got["points"].shape == (win, len(cols), 4) and got["rate"] == 30.0,
+                        f"{sub}/{fname}: shape {got['points'].shape}, rate {got['rate']}")
+                require(got["labels"] == [names[i] for i in cols], f"{sub}/{fname}: labels")
+                want = want_all[w * win:(w + 1) * win][:, cols]
+                want = np.concatenate([want, np.repeat(want[-1:], win - want.shape[0], 0)])
+                err = float(np.abs(got["points"][:, :, :3] - want).max())
+                require(err <= 2.0 * float(np.abs(want).max()) * np.finfo(np.float32).eps,
+                        f"{sub}/{fname}: points off by {err} m")
+                max_err, n_files = max(max_err, err), n_files + 1
+        gt = os.path.join(d, "gt.npz")
+        np.savez(gt, poses=rng.randn(n_win * win, 72).astype(np.float32),
+                 trans=rng.randn(n_win * win, 3).astype(np.float32),
+                 betas=rng.randn(10).astype(np.float32), mocap_frame_rate=30.0, gender="neutral")
+        t0 = time.time()
+        sliced = slice_gt_to_windows(gt, os.path.join(d, "gt_out"), PREPROCESS_SEQ)
+        slice_s = time.time() - t0
+        require(len(sliced) == n_win, f"{len(sliced)} ground-truth windows")
+        for path in sliced:
+            z = np.load(path)
+            require(z["poses"].shape == (win, 72) and z["trans"].shape == (win, 3), f"{path}: shapes")
+    print(f"preprocess: raw capture {F} x {M} at {PREPROCESS_RATE:g} Hz ({raw.nbytes / 2 ** 20:.1f} MiB, "
+          f"written in {write_s:.2f} s); run_dataset cmu_kitchen (backpack removed, 3 parts) "
+          f"{run_s:.3f} s for {count} windows; native parse {parse_s / n_files * 1e3:.3f} ms per "
+          f"window ({n_files} windows); largest point error {max_err:.3g} m; "
+          f"slice_gt_to_windows {slice_s:.3f} s ({len(sliced)} windows)", flush=True)
+    return {"run_s": run_s, "parse_ms": parse_s / n_files * 1e3, "windows": count}
+
+
+def tools_checks(d, ds, synth, seqs):
+    """The tools around the solve on a solved CLI dataset (``cli_phase``'s
+    batch): ``cli.filter`` on one result, ``cli.export_marker_layout`` on
+    the card and with ``--cpu_only``, and ``eval.qualitative``'s device half
+    for the ground truth and the solve on every sequence, on the card and
+    on the CPU.  The renderer (matplotlib) is not called: this machine's
+    installation need not have it."""
+    import numpy as np
+
+    from uuo_mocap_tpu_torch.cli import export_marker_layout, filter as cli_filter
+    from uuo_mocap_tpu_torch.eval import comparisons, qualitative
+
+    out_dir = os.path.join(d, ds, "results", "video_mocap", "s1", f"synthetic_{synth}")
+    seq0 = os.path.join(out_dir, f"{seqs[0]}_stageii.npz")
+    smooth = os.path.join(d, f"{seqs[0]}_smoothed.npz")
+    cli_filter.main(["--input", seq0, "--output", smooth])
+    a, b = np.load(seq0), np.load(smooth)
+    require(all(a[k].shape == b[k].shape for k in a.files) and sorted(a.files) == sorted(b.files),
+            "cli.filter: keys or shapes changed")
+    jitter = [float(np.abs(np.diff(z["poses"], axis=0)).mean()) for z in (a, b)]
+    require(jitter[1] < jitter[0], f"cli.filter: jitter {jitter[1]} not below {jitter[0]}")
+
+    c3d = os.path.join(d, ds, f"mocap_synthetic___{synth}", "s1", f"{seqs[0]}.c3d")
+    no_models = os.path.join(d, "no_body_models")
+    res, secs = {}, {}
+    for name, extra in (("cuda", []), ("cpu", ["--cpu_only"])):
+        t0 = time.time()
+        res[name] = export_marker_layout.main(
+            ["--markers", c3d, "--smpl", seq0, "--frame", "0", "--body_models", no_models,
+             "--output", os.path.join(d, f"layout_{name}.ply"), *extra])
+        secs[name] = time.time() - t0
+    gpu, cpu = res["cuda"], res["cpu"]
+    with open(gpu["path"]) as f:
+        header = f.read(400)
+    M = gpu["face_index"].shape[0]
+    require(f"element vertex {6890 + 6 * M}\n" in header and f"element face {13776 + 8 * M}\n" in header,
+            f"export_marker_layout: header {header!r}")
+    require(bool(np.isfinite(gpu["distance"]).all()), "export_marker_layout: distances")
+    # a marker whose closest point is a vertex or an edge lies on several
+    # faces at one distance: the two devices' rounding may pick different
+    # ones.  Such a tie attaches to the same point, so a marker passes with
+    # the same face or with the same closest point and template position
+    same = gpu["face_index"] == cpu["face_index"]
+    ties = ~same & (np.abs(gpu["closest_point"] - cpu["closest_point"]).max(-1) <= LAYOUT_TOL_M) \
+        & (np.abs(gpu["template_position"] - cpu["template_position"]).max(-1) <= LAYOUT_TOL_M)
+    dist_err = float(np.abs(gpu["distance"] - cpu["distance"]).max())
+    tie_bary = [float(x) for x in gpu["barycentric"][~same].max(-1)]
+    require(float((same | ties).mean()) >= 0.99 and dist_err <= LAYOUT_TOL_M,
+            f"export_marker_layout: same face on {int(same.sum())} of {M} markers, ties "
+            f"{int(ties.sum())}, distances differ by {dist_err}")
+    print(f"tools: cli.filter jitter {jitter[0]:.5f} -> {jitter[1]:.5f} rad; export_marker_layout "
+          f"({M} markers) on the card {secs['cuda']:.2f} s, on the CPU {secs['cpu']:.2f} s; same "
+          f"face on {int(same.sum())} of {M} markers ({float(same.mean()):.3f}), the other "
+          f"{int((~same).sum())} ties at one closest point (largest barycentric weight {tie_bary}); "
+          f"distances within {dist_err:.2e} m (largest {float(gpu['distance'].max()) * 1e3:.2f} mm)",
+          flush=True)
+
+    models = {name: comparisons.default_model_provider(no_models, device=name)("neutral")
+              for name in ("cuda", "cpu")}
+    items = list(qualitative.qualitative_items(d, ds, ["moshpp", "video_mocap"], synthetic=synth))
+    require(len(items) == 2 * len(seqs), f"eval.qualitative: {len(items)} items")
+    worst, secs = 0.0, {"cuda": 0.0, "cpu": 0.0}
+    for method, _, seq, pred, _, _ in items:
+        verts = {}
+        for name, model in models.items():
+            t0 = time.time()
+            verts[name] = qualitative.posed_vertices(pred, model, QUAL_MAX_FRAMES).cpu().numpy()
+            secs[name] += time.time() - t0
+        require(verts["cuda"].shape == (QUAL_MAX_FRAMES, 6890, 3)
+                and bool(np.isfinite(verts["cuda"]).all()), f"{method}/{seq}: posed vertices")
+        err = float(np.abs(verts["cuda"] - verts["cpu"]).max())
+        require(err <= LAYOUT_TOL_M, f"{method}/{seq}: card and CPU vertices differ by {err} m")
+        worst = max(worst, err)
+    print(f"tools: eval.qualitative posed_vertices for {len(items)} (method, sequence) pairs at "
+          f"{QUAL_MAX_FRAMES} frames: on the card {secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s, "
+          f"largest difference {worst:.2e} m", flush=True)
+    print("tools: eval.qualitative's renderer (matplotlib) is not called here: the GPU "
+          "machine's installation has no matplotlib", flush=True)
 
 
 def cli_phase():
@@ -1590,6 +1798,8 @@ def cli_phase():
                         f"above {MPJPE_GATE_MM} mm")
                 require(stats["video_mocap"]["mpjpe"]["mean"] < stats["hmr"]["mpjpe"]["mean"],
                         f"{ds}: video_mocap MPJPE not below the prior's")
+                if ds == "cli_batch":
+                    tools_checks(d, ds, synth, seqs)
                 if "--save_iterations" in extra:
                     for seq in seqs:
                         check_journal(os.path.join(journal_dir, f"s1_{seq}_iterations.pkl"))
@@ -1788,6 +1998,9 @@ def main() -> int:
         phase(model, *args)
         print(f"{name} phase: {time.time() - t0:.1f} s", flush=True)
     path_phase(model, gt, markers, prior)
+    t0 = time.time()
+    preprocess_phase()
+    print(f"preprocess phase: {time.time() - t0:.1f} s", flush=True)
     cli_phase()
     t0 = time.time()
     training_phase(model)

@@ -45,6 +45,40 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(sources) >= 20 and not offenders, offenders
 
 
+_PROBE_NO_HOST_LIBS = r"""
+import sys
+HOST_ONLY = ("matplotlib", "mpl_toolkits", "PIL", "cv2", "pyrender", "trimesh")
+for name in HOST_ONLY:
+    sys.modules[name] = None  # import raises ImportError, as where they are not installed
+import importlib, pkgutil
+import uuo_mocap_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(uuo_mocap_tpu_torch.__path__, "uuo_mocap_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+from uuo_mocap_tpu_torch.vis import plots, viewer_pyrender
+assert not viewer_pyrender.pyrender_available()
+try:
+    plots.plot_label_histogram("x.png", [0, 1])
+except ImportError:
+    pass
+else:
+    raise SystemExit("matplotlib was not blocked")
+print(len(names), sorted(n for n in names if n.split(".")[1] == "vis"))
+"""
+
+
+def test_port_imports_without_the_host_only_libraries():
+    """The card's machine has no matplotlib, PIL, cv2 or pyrender: every
+    module of the port (and ``chip_smoke.py``) imports without them."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PROBE_NO_HOST_LIBS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 20
+    assert "uuo_mocap_tpu_torch.vis.renderer" in out.stdout
+
+
 def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")

@@ -148,8 +148,10 @@ bool ParseC3d(const std::string& path, C3dData* out) {
   }
   if (Param* p = get_param("POINT", "FRAMES")) {
     if (p->dtype == 2 && p->data.size() >= 2) {
+      // a signed 16-bit word, written as 32767 for longer captures; the
+      // header's unsigned count (up to 65535 frames) then takes over
       int v = ReadLE<int16_t>(p->data.data());
-      if (v > 0) num_frames = v;
+      if (v > 0 && !(v == 32767 && num_frames > v)) num_frames = v;
     }
   }
   if (Param* p = get_param("POINT", "UNITS")) {

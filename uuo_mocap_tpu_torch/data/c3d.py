@@ -18,6 +18,7 @@ import numpy as np
 
 _BLOCK = 512
 _PROC_INTEL = 84  # 83 + 1
+_INT16_MAX = 32767
 
 
 def peek_c3d_shape(filename: str) -> "tuple[int, int]":
@@ -132,7 +133,10 @@ def read_c3d(filename: str, use_native: bool = True) -> Dict[str, Any]:
     num_frames = last_frame - first_frame + 1
     if p is not None:
         v = int(np.asarray(p["data"])[0])
-        if v > 0:
+        # POINT:FRAMES is a signed 16-bit word, written as 32767 for longer
+        # captures (write_c3d does so); the header's unsigned count holds up
+        # to 65535 frames and then takes over
+        if v > 0 and not (v == _INT16_MAX and num_frames > v):
             num_frames = v
 
     units = "mm"
@@ -204,7 +208,7 @@ def write_c3d(
     pblob = struct.pack("<BBbb", 0, 0, 0, _PROC_INTEL)
     pblob += _group_bytes("POINT", gid)
     pblob += _param_bytes("USED", gid, 2, [], struct.pack("<h", M))
-    pblob += _param_bytes("FRAMES", gid, 2, [], struct.pack("<h", min(F, 32767)))
+    pblob += _param_bytes("FRAMES", gid, 2, [], struct.pack("<h", min(F, _INT16_MAX)))
     pblob += _param_bytes("RATE", gid, 4, [], struct.pack("<f", rate))
     pblob += _param_bytes("SCALE", gid, 4, [], struct.pack("<f", -1.0))
     pblob += _param_bytes("UNITS", gid, -1, [len(units)], units.encode("ascii"))
