@@ -32,7 +32,17 @@
    <= 35 mm).  Prints the solve time, frames per second, stage times, L-BFGS
    evaluation counts, the winning hypotheses, launches per stage call and
    digests of the output and of the chamfer-stage snapshot.
-4. The cmu_41 batch (bench.py's second layout, its gates 12 / 18 mm), as 3.
+4. The cmu_41 batch (bench.py's second layout, its gates 12 / 18 mm), as
+   3., through ``MultiSequenceSolver(mesh=make_mesh())``: the visible card as
+   a 1 x 1 mesh, the unsharded solve (its digest as before).
+4a. Mesh phase (``parallel/mesh.py``): the random batch through a (1, 2)
+   mesh that names the card twice, the body model cut into two vertex
+   blocks (the rank kernel and the forward once per block, at V = 3445,
+   combined to the global argmin).  Gates: 3.'s gates, 3.'s winning
+   hypotheses, each sequence's MPJPE within 2 mm of 3.'s.  Prints the rank
+   launches beside 3.'s.  Then ``sharded_train_step`` at 4 x 450 x 41 for 10
+   SGD steps on a 1 x 1 and the 1 x 2 mesh: the losses within rtol 1e-5,
+   falling, the min_sqdist forward and backward kernels launched.
 5. Full-surface phase: the random batch through ``MultiSequenceSolver`` with
    ``full_surface_config()`` (``FULL_SURFACE`` merged into 3.'s config): the
    root stage with every root loss and both chamfer directions, the part
@@ -127,7 +137,13 @@
    position, within 1e-5 m; distances within 1e-5 m) and
    ``eval.qualitative``'s device half (``posed_vertices``) for the ground
    truth and the solve at 90 frames, finite and within 1e-5 m of the CPU.
-   The renderer is not called: the GPU machine has no matplotlib.
+   Then the vis phase (``vis_checks``): the device halves of the vis CLIs
+   on the card and on the CPU (posed vertices within 1e-5 m, segmentation
+   labels and the paper's confusion matrix equal, the reprojection stage
+   finite) and ``visualize_model``'s solve on one CLI sequence with
+   5-iteration stages (finite, the reference's keys and shapes; its
+   launches printed).  The renderer is not called: the GPU machine has no
+   matplotlib.
 14. Training phase: the six model families trained on the card into a
    temporary directory (never ``checkpoints/``).  The four that
    ``checkpoints/MANIFEST.json`` records run its recipe through
@@ -156,9 +172,9 @@ Prints each solve's launch counts as a ``{"<phase>_launches": {...}}`` line,
 then a ``{"kernels": [...]}`` line (launches from the full-surface phase,
 which runs every kernel), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.  Imports
-nothing of JAX.  On one H100 (700 W) the whole run took 936.7-957.3 s, the
-kernel build and the training phase (54.7-59.7 s) included, the host
-setting the spread (allow it 1200 s).
+nothing of JAX.  On one H100 (700 W) the whole run took 898.6 s, the
+kernel build, the mesh, vis and training phases included, the host setting
+the spread (allow it 1200 s; PERF.md section 5 has every total).
 """
 from __future__ import annotations
 
@@ -740,11 +756,13 @@ def stage_digest(out, stage):
     return digest(*(r["stages"][stage][k] for r in out["results"] for k in STAGE_KEYS))
 
 
-def batch_phase(model, layout="random"):
+def batch_phase(model, layout="random", mesh=None):
     """``MultiSequenceSolver.solve_prepared`` on one of bench.py's batches:
-    the random layout (the main path) or cmu_41, each held to its gates.
+    the random layout (the main path) or cmu_41, each held to its gates;
+    with ``mesh`` the solver runs on that device mesh.
     -> {"counts": launch counts, "mpjpe": per-sequence MPJPE (mm),
-    "chamfer_digest": the chamfer-stage snapshot's digest}."""
+    "chamfer_digest": the chamfer-stage snapshot's digest, "best": the
+    winning hypotheses, "solve_s"}."""
     import numpy as np
     import torch
 
@@ -753,13 +771,18 @@ def batch_phase(model, layout="random"):
     from uuo_mocap_tpu_torch.pipeline.segmentation import segment_rigid
 
     tag = "batch" if layout == "random" else f"{layout} batch"
+    if mesh is not None and mesh.size > 1:
+        tag = f"mesh {tag}"
     gates = BATCH_GATES_MM[layout]
     t0 = time.time()
     gts, preps = make_batch(model, layout=layout)
     print(f"{tag}: {BATCH} sequences of {preps[0].M_real} markers made in "
           f"{time.time() - t0:.2f} s; rigid groups per sequence "
           f"{[len(segment_rigid(p.markers[: p.F_real])) for p in preps]}", flush=True)
-    solver = MultiSequenceSolver(model, bench_parallel_config(), device="cuda")
+    solver = (MultiSequenceSolver(model, bench_parallel_config(), device="cuda") if mesh is None
+              else MultiSequenceSolver(model, bench_parallel_config(), mesh=mesh))
+    if mesh is not None:
+        print(f"{tag}: on {mesh}", flush=True)
     per_call = []
     count_stage_launches(solver.part_fitter, ("fit_batch",), per_call)
     count_stage_launches(solver.stages, ("chamfer_stage_lanes", "score_chamfer_lanes",
@@ -794,7 +817,73 @@ def batch_phase(model, layout="random"):
             f"{tag} MPJPE mean {mean_v:.2f} / median {med_v:.2f} mm above {gates[0]} mm")
     require(max_v <= gates[1], f"{tag} MPJPE max {max_v:.2f} mm above {gates[1]} mm")
     return {"counts": counts, "mpjpe": errs, "chamfer_digest": chamfer_digest,
-            "evals": out["lbfgs_evals"], "eval_stats": out["eval_stats"]}
+            "evals": out["lbfgs_evals"], "eval_stats": out["eval_stats"],
+            "best": out["best_hypothesis"].tolist(), "solve_s": solve_s}
+
+
+MESH_MPJPE_TOL_MM = 2.0  # tests/test_model_axis_parity.py's bound for the same transformation
+MESH_TRAIN = dict(batch=BATCH, frames=F_FRAMES, markers=N_MARKERS)
+MESH_TRAIN_STEPS = 10
+
+
+def mesh_phase(model, random):
+    """The device mesh on the one card (``parallel/mesh.py``): the random
+    batch through ``MultiSequenceSolver(mesh=make_mesh(devices=[cuda:0,
+    cuda:0], data=1, model=2))``, the body model cut into two vertex blocks
+    of 3445 (every dense forward's min over V runs per block, the rank
+    kernel once per block, the combine picks the global argmin).  This
+    checks the shard arithmetic with the real kernels, not scaling across
+    cards.  Gates: the random batch's gates, its winning hypotheses, and
+    each sequence's MPJPE within 2 mm of ``random``'s.  Then
+    ``sharded_train_step`` at B x F x M = 4 x 450 x 41 on a 1 x 1 and the 1
+    x 2 mesh for MESH_TRAIN_STEPS SGD steps: the losses within rtol 1e-5 of
+    each other, and falling.  -> launch counts of the solve and the steps."""
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.parallel.mesh import (
+        make_mesh, make_train_batch, sharded_train_step)
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"], data=1, model=2)
+    res = batch_phase(model, "random", mesh=mesh)
+    diffs = [abs(a - b) for a, b in zip(res["mpjpe"], random["mpjpe"])]
+    rank, rank0 = res["counts"]["rank_nearest_cuda"], random["counts"]["rank_nearest_cuda"]
+    print(f"mesh: (1, 2) solve {res['solve_s']:.2f} s against {random['solve_s']:.2f} s unsharded; "
+          f"best hypotheses {res['best']} (unsharded {random['best']}); MPJPE differences (mm) "
+          f"{[round(x, 3) for x in diffs]}; rank launches {rank} at V = 3445 per block against "
+          f"{rank0} at V = 6890 unsharded ({rank / max(rank0, 1):.2f}x)", flush=True)
+    require(res["best"] == random["best"], f"mesh: best hypotheses {res['best']} != {random['best']}")
+    require(max(diffs) <= MESH_MPJPE_TOL_MM,
+            f"mesh: MPJPE differs from the unsharded solve by {max(diffs):.3f} mm")
+
+    params, batch = make_train_batch(model, **MESH_TRAIN)
+    losses, step_counts = {}, {}
+    for name, m in (("1x1", make_mesh(devices=["cuda:0"], data=1, model=1)), ("1x2", mesh)):
+        step = sharded_train_step(model, m)
+        p, hist = params, []
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(MESH_TRAIN_STEPS):
+            p, loss = step(p, batch)
+            hist.append(float(loss))
+        torch.cuda.synchronize()
+        step_counts[name] = K.launch_counts()
+        losses[name] = hist
+        print(f"mesh: sharded_train_step {name} at {MESH_TRAIN}: {MESH_TRAIN_STEPS} steps "
+              f"{time.time() - t0:.3f} s, loss {hist[0]:.6f} -> {hist[-1]:.6f}; launches "
+              f"{step_counts[name]}", flush=True)
+        require(all(np.isfinite(hist)) and hist[-1] < hist[0], f"mesh: {name} loss did not fall")
+        require(step_counts[name]["min_sqdist_forward_cuda"] > 0
+                and step_counts[name]["min_sqdist_backward_cuda"] > 0,
+                f"mesh: {name} step did not launch the min_sqdist forward and backward kernels")
+    gap = float(np.max(np.abs(np.subtract(losses["1x2"], losses["1x1"])) / np.abs(losses["1x1"])))
+    print(f"mesh: train-step losses 1x2 against 1x1 within rtol {gap:.2e} (gate 1e-5)", flush=True)
+    require(gap <= 1e-5, f"mesh: train-step losses differ by rtol {gap:.2e}")
+    print(json.dumps({"mesh_launches": res["counts"], "mesh_train_launches": step_counts["1x2"]}),
+          flush=True)
+    return {"solve": res["counts"], "train": step_counts["1x2"]}
 
 
 def full_surface_phase(model):
@@ -1687,6 +1776,153 @@ def tools_checks(d, ds, synth, seqs):
           "machine's installation has no matplotlib", flush=True)
 
 
+VIS_MODEL_ITERS = 5  # visualize_model's stages: a cut depth, the widths as shipped
+VIS_REPROJ_ITERS = 10  # visualize_reprojection's stage: cut from its CLI's 50
+VIS_MODEL_CONFIG = """find_best_part_fits: true
+stages:
+  part:
+    num_iters: {n}
+  chamfer:
+    num_iters: {n}
+  marker:
+    num_iters: {n}
+"""
+
+
+def vis_checks(d, ds, synth, seqs, journal):
+    """The device halves of the vis CLIs (``uuo_mocap_tpu_torch/vis``) on the
+    CLI phase's data, on the card and with the CPU: ``visualize_smpl`` and
+    ``paper``'s stills on a solved ``*_stageii.npz``, ``visualize_dataset``
+    (procedural and ``--structured``), ``visualize_iterations`` on the
+    sequential run's journal (posed vertices within 1e-5 m of the CPU),
+    ``visualize_segmentation`` on the shipped checkpoints (both nets) and
+    ``paper``'s confusion matrix (labels and counts equal),
+    ``visualize_reprojection``'s stage at VIS_REPROJ_ITERS iterations
+    (finite, the CPU's shapes); then
+    ``visualize_model``'s solve on the card, on one CLI sequence with
+    VIS_MODEL_ITERS-iteration stages (finite, the reference's keys and
+    shapes).  No renderer is called.  -> launch counts of the vis phase."""
+    import numpy as np
+    import torch
+
+    from uuo_mocap_tpu_torch.eval.comparisons import default_model_provider
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.pipeline.journal import IterationJournal
+    from uuo_mocap_tpu_torch.vis import (
+        paper, visualize_dataset, visualize_iterations, visualize_model, visualize_reprojection,
+        visualize_segmentation, visualize_smpl)
+
+    K.reset_launch_counts()
+    secs = {}
+    no_models = os.path.join(d, "no_body_models")
+    models = {name: default_model_provider(no_models, device=name)("neutral")
+              for name in ("cuda", "cpu")}
+    npz = os.path.join(d, ds, "results", "video_mocap", "s1", f"synthetic_{synth}",
+                       f"{seqs[0]}_stageii.npz")
+    entries = IterationJournal.load(journal)
+    halves = {
+        "visualize_smpl": lambda m: visualize_smpl.smpl_bodies([npz], m),
+        "paper.stills_vertices": lambda m: [paper.stills_vertices(npz, m)],
+        "visualize_dataset": lambda m: list(visualize_dataset.dataset_sample(m, frames=64)[:2]),
+        "visualize_dataset --structured": lambda m: list(
+            visualize_dataset.dataset_sample(m, frames=64, structured=True)[:2]),
+        "visualize_iterations": lambda m: [v for *_, v in visualize_iterations.replay_vertices(
+            entries, m)],
+    }
+    for name, fn in halves.items():
+        out = {}
+        for dev, m in models.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out[dev] = fn(m)
+            torch.cuda.synchronize()
+            secs[dev] = time.time() - t0
+        require(len(out["cuda"]) == len(out["cpu"]) > 0, f"vis: {name}: outputs")
+        err = 0.0
+        for a, b in zip(out["cuda"], out["cpu"]):
+            require(a.shape == b.shape and bool(np.isfinite(a).all()), f"vis: {name}: shapes")
+            err = max(err, float(np.abs(a - b).max()))
+        print(f"vis: {name}: {len(out['cuda'])} arrays {[a.shape for a in out['cuda']][:3]}, card "
+              f"{secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s, largest difference {err:.2e} m",
+              flush=True)
+        require(err <= LAYOUT_TOL_M, f"vis: {name}: card and CPU differ by {err} m")
+
+    for multimodal in (False, True):
+        preds = {}
+        for dev, m in models.items():
+            t0 = time.time()
+            net, hist = visualize_segmentation.load_or_train(m, CHECKPOINTS, multimodal)
+            require(hist is None, "vis: visualize_segmentation did not load the shipped checkpoint")
+            preds[dev] = visualize_segmentation.predict_parts(m, net, multimodal)
+            secs[dev] = time.time() - t0
+        acc = float((preds["cuda"][1] == preds["cuda"][2][None]).mean())
+        print(f"vis: visualize_segmentation{' --multimodal' if multimodal else ''}: per-marker "
+              f"accuracy {acc:.3f}, card {secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s", flush=True)
+        require(np.array_equal(preds["cuda"][1], preds["cpu"][1]),
+                "vis: visualize_segmentation labels differ between the card and the CPU")
+    cms = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        cms[dev] = paper.segmentation_labels(CHECKPOINTS, device=dev)
+        secs[dev] = time.time() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(cms["cuda"], cms["cpu"]))
+    print(f"vis: paper confusion matrix: {int(cms['cuda'][2].sum())} markers, "
+          f"{float(np.trace(cms['cuda'][2]) / cms['cuda'][2].sum()):.3f} on the diagonal; card "
+          f"{secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s; labels and counts equal: {same}",
+          flush=True)
+    require(same, "vis: the confusion matrix differs between the card and the CPU")
+
+    outs = {}
+    for dev, m in models.items():
+        t0 = time.time()
+        outs[dev], _ = visualize_reprojection.run_reprojection(m, num_iters=VIS_REPROJ_ITERS)
+        secs[dev] = time.time() - t0
+    for k in ("joints_2d", "trans", "root_orient"):
+        a, b = outs["cuda"][k], outs["cpu"][k]
+        require(a.shape == b.shape and bool(np.isfinite(a).all()), f"vis: reprojection {k}")
+    print(f"vis: visualize_reprojection stage (4 seeds, {VIS_REPROJ_ITERS} iterations, 30 frames): card "
+          f"{secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s; metrics card "
+          f"{np.round(outs['cuda']['metrics']['reproject'], 4).tolist()}, CPU "
+          f"{np.round(outs['cpu']['metrics']['reproject'], 4).tolist()}", flush=True)
+
+    # visualize_model reads <dataset>/mocap/<subject>/<sequence>.c3d
+    mocap = os.path.join(d, ds, "mocap")
+    if not os.path.exists(mocap):
+        os.symlink(os.path.join(d, ds, f"mocap_synthetic___{synth}"), mocap)
+    cfg = os.path.join(d, "vis_model.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"parent: {os.path.join(HERE, 'configs', 'video_mocap.yaml')}\n"
+                f"checkpoints_dir: {CHECKPOINTS}\n" + VIS_MODEL_CONFIG.format(n=VIS_MODEL_ITERS))
+    args = visualize_model.build_parser().parse_args(
+        ["--config", cfg, "--dataset", ds, "--input_dir", d, "--subject", "s1", "--sequence",
+         seqs[0], "--show_hmr", "--body_models", no_models])
+    before = K.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    solved = visualize_model.solve_sequence(args, models["cuda"])
+    torch.cuda.synchronize()
+    model_s = time.time() - t0
+    after = K.launch_counts()
+    res = solved["result"]
+    F, M = solved["points"].shape[:2]
+    shapes = {"trans": (F, 3), "root_orient": (F, 1, 3, 3), "pose_body": (F, 23, 3, 3),
+              "betas": (F, 10), "markers_labels": (F, M)}
+    for k, shp in shapes.items():
+        require(res[k].shape == shp and bool(np.isfinite(res[k]).all()),
+                f"vis: visualize_model {k} shape {res[k].shape} or not finite")
+    require({"stages", "chain"} <= set(res) and solved["verts"].shape == (F, 6890, 3)
+            and solved["hmr_verts"].shape == (F, 6890, 3) and bool(np.isfinite(solved["verts"]).all()),
+            "vis: visualize_model's outputs")
+    solve_launches = {k: after[k] - before[k] for k in after}
+    print(f"vis: visualize_model solve on the card, {F} x {M}, {VIS_MODEL_ITERS}-iteration stages: "
+          f"{model_s:.2f} s, stages {sorted(res['stages'])}, launches {solve_launches}", flush=True)
+    require(solve_launches["rank_nearest_cuda"] > 0 and solve_launches["min_sqdist_forward_cuda"] > 0,
+            "vis: visualize_model's solve did not launch the rank and forward kernels")
+    counts = K.launch_counts()
+    print(json.dumps({"vis_launches": counts}), flush=True)
+    return counts
+
+
 def cli_phase():
     """The user's entry points, in process, in a temporary directory: the
     synthetic export, ``cli.test --batch 4`` (bench.py's parallel settings
@@ -1804,12 +2040,16 @@ def cli_phase():
                     for seq in seqs:
                         check_journal(os.path.join(journal_dir, f"s1_{seq}_iterations.pkl"))
             counts = K.launch_counts()
+            t0 = time.time()
+            vis_counts = vis_checks(d, "cli_batch", f"0_{N_MARKERS}", runs[0][1],
+                                    os.path.join(journal_dir, "s1_seq_000_iterations.pkl"))
+            print(f"vis phase: {time.time() - t0:.1f} s", flush=True)
     finally:
         for owner, name, fn in originals:
             setattr(owner, name, fn)
     print(json.dumps({"cli_launches": counts}), flush=True)
     require_launches(counts, "the CLI phase")
-    return counts
+    return counts, vis_counts
 
 
 # the training phase: checkpoints/MANIFEST.json's recipe (tools/
@@ -1985,7 +2225,12 @@ def main() -> int:
 
     kres = kernel_phase(model, gt, markers)
     random = batch_phase(model)  # the main path
-    batch_phase(model, "cmu_41")
+    from uuo_mocap_tpu_torch.parallel.mesh import make_mesh
+
+    batch_phase(model, "cmu_41", mesh=make_mesh())  # the visible card: a 1 x 1 mesh
+    t0 = time.time()
+    mesh_launches = mesh_phase(model, random)
+    print(f"mesh phase: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     launches = full_surface_phase(model)  # every kernel; the counts of the kernels line
     print(f"full_surface phase: {time.time() - t0:.1f} s", flush=True)

@@ -282,7 +282,7 @@ def test_batch_solver_device_rule_and_unported_options(model):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MultiSequenceSolver(model, cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is parallel.mesh's grid
         MultiSequenceSolver(model, cfg, mesh=object(), device="cpu")
     solver = MultiSequenceSolver(model, copy.deepcopy(cfg), device="cpu")
     assert solver.stages._chamfer_solver.max_width == 16

@@ -368,3 +368,82 @@ def test_part_fit_dense_path_matches_jax(models, data):
     np.testing.assert_array_equal(ours.marker_labels.numpy(), np.asarray(ref.marker_labels))
     _assert_within_rule(ours.params, ref.params, lambda: jfit(
         num_rigid_groups=M, **{k: jnp.asarray(v) for k, v in args(1 + 1e-6).items()}).params)
+
+
+# ------------------------------------------ a loss key no stage reads (C.14)
+
+# per stage: its losses, one key the stage's closure does not read, and how
+# to build (params, lane, shared) for one lane
+UNREAD_KEY_CASES = {
+    "root": ({"full_chamfer": 10.0, "reg_betas": 0.1, "trans_vel": 1.0}, "temporal"),
+    "chamfer": ({"full_chamfer": 10.0, "reg_pose_body": 1.0, "reg_betas": 1.0}, "temporal"),
+    "part": ({"chamfer": 10.0, "reg_betas": 0.1}, "temporal"),
+    "marker": ({"marker": 1.0, "reg_pose_body": 0.1, "reg_betas": 1.0}, "root_orient_vel"),
+}
+
+
+def _unread_key_problem(stage, data):
+    pose, betas, root, trans = data["priors"][0]
+    rng = np.random.RandomState(11)
+    common = {"markers": data["markers"], "o_pose_body": pose, "o_betas": betas,
+              "frame_valid": np.ones(F, np.float32)}
+    if stage == "root":
+        params = {"trans": trans, "z": (0.1 * rng.randn(F, 1, 1)).astype(np.float32),
+                  "betas": betas}
+        return params, {"root_orient0": root}, dict(
+            common, weights=data["weights"], marker_labels_mode=data["labels"])
+    if stage == "chamfer":
+        params = {"trans": trans, "z": (0.1 * rng.randn(F, 1, 1)).astype(np.float32),
+                  "betas": betas,
+                  "pose6d": np.asarray(jrot.matrix_to_rotation_6d(jnp.asarray(pose)))}
+        return params, {"root_orient0": root}, dict(
+            common, weights=data["weights"], marker_labels_mode=data["labels"])
+    if stage == "part":
+        params = {"z": np.full((1, 1, 1), 0.2, np.float32), "trans": trans, "betas": betas}
+        mask = (rng.rand(6890) > 0.5).astype(np.float32)
+        return params, {"vertex_mask": mask}, dict(
+            common, marker_weights=np.ones_like(data["weights"]), root_orient0=root,
+            foot_contacts=np.zeros((F, 2), np.float32))
+    params = {"pose6d": np.asarray(jrot.matrix_to_rotation_6d(jnp.asarray(pose))),
+              "betas": betas, "root6d": np.asarray(jrot.matrix_to_rotation_6d(jnp.asarray(root))),
+              "trans": trans}
+    ids = rng.randint(0, 6890, size=(M, 3)).astype(np.int64)
+    w = rng.rand(M, 3).astype(np.float32)
+    return params, {"att_ids": ids, "att_w": w / w.sum(-1, keepdims=True)}, dict(
+        common, weights=data["weights"])
+
+
+def _stage_fun(pkg_stages, pkg_fitter, model, cfg, stage):
+    if stage == "part":
+        return pkg_fitter(model, cfg)._solver.fun
+    st = pkg_stages(model, cfg)
+    return {"root": lambda: st._root_solver, "chamfer": lambda: st._chamfer_solver,
+            "marker": lambda: st._marker_solver}[stage]().fun
+
+
+@pytest.mark.parametrize("stage", sorted(UNREAD_KEY_CASES))
+def test_an_unread_loss_key_changes_no_closure(models, data, stage):
+    """A loss key the stage does not read is ignored, in both packages (the
+    reference turns a loss on by its key's presence and reads only the keys
+    it knows): the closure gives the same value with the key as without it,
+    and the port's equals the reference's with it."""
+    jm, tm = models
+    losses, extra = UNREAD_KEY_CASES[stage]
+    params, lane, shared = _unread_key_problem(stage, data)
+    values = {}
+    for with_extra in (False, True):
+        cfg = jax_load_config(CONFIG)
+        cfg["stages"][stage]["losses"] = dict(losses, **({extra: 1.0} if with_extra else {}))
+        jfun = _stage_fun(JaxSolveStages, JaxPartFitter, jm, cfg, stage)
+        tfun = _stage_fun(SolveStages, PartFitter, tm, copy.deepcopy(cfg), stage)
+        fj = jfun({k: jnp.asarray(v) for k, v in params.items()},
+                  {k: jnp.asarray(v) for k, v in lane.items()},
+                  {k: jnp.asarray(v) for k, v in shared.items()})
+        with torch.no_grad():
+            ft = tfun({k: torch.as_tensor(np.array(v))[None] for k, v in params.items()},
+                      {k: torch.as_tensor(np.array(v))[None] for k, v in lane.items()},
+                      {k: torch.as_tensor(np.array(v)) for k, v in shared.items()})
+        values[with_extra] = (float(fj), ft.item())
+    assert values[True][0] == values[False][0]
+    assert values[True][1] == values[False][1]
+    np.testing.assert_allclose(values[True][1], values[True][0], rtol=REL)

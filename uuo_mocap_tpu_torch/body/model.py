@@ -192,7 +192,10 @@ def lbs_forward(model: BodyModel, pose_body: torch.Tensor, betas: torch.Tensor,
     """Dense SMPL forward (``body/model.py:336-410``), batched over the
     leading dims of ``trans``: pose_body [..., 23, 3, 3], betas [..., 10],
     root_orient [..., 1, 3, 3], trans [..., 3] (all broadcastable) ->
-    {"joints" [..., 45, 3], "vertices" [..., V, 3]}."""
+    {"joints" [..., 45, 3], "vertices" [..., V, 3]}.  A model placed on a
+    mesh (``parallel.mesh.ShardedBodyModel``) runs its own forward."""
+    if not isinstance(model, BodyModel):
+        return model.lbs_forward(pose_body, betas, root_orient, trans)
     batch = trans.shape[:-1]
     V = model.num_vertices
     betas = betas.expand(batch + (NUM_BETAS,))

@@ -11,6 +11,8 @@ caller passes ``batch_dims=1`` to get one value per lane.  With the default
 
 ``min_sqdist`` dispatches on the tensor's device: CUDA tensors run the
 Hopper kernels of ``ops.chamfer_kernels``, CPU tensors their plain versions.
+A vertex cloud split over a mesh's model axis (``ops.sharded.VertexShards``)
+is reduced block by block (``ops/sharded.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+from uuo_mocap_tpu_torch.ops import sharded
 
 BIG = 1e10  # vertex-exclusion bias (0 keeps a vertex)
 
@@ -45,10 +48,11 @@ def nearest_vertex(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torc
 class MinSqdist(torch.autograd.Function):
     """min over V of d^2(x, y) + y_bias with the O(M) argmin-gather backward
     (``chamfer.py:95-178``): the gradient flows only through each query's
-    selected target, so no [..., M, V] tensor is built backward."""
+    selected target, so no [..., M, V] tensor is built backward.  Returns
+    (value, argmin); the argmin takes no gradient."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, y: torch.Tensor, y_bias: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, y: torch.Tensor, y_bias: torch.Tensor):
         batch = x.shape[:-2]
         M, V = x.shape[-2], y.shape[-2]
         xf = x.reshape(-1, M, 3).contiguous()
@@ -57,10 +61,11 @@ class MinSqdist(torch.autograd.Function):
         val, idx = K.min_sqdist_forward(xf, yf, bf)
         ctx.save_for_backward(xf, yf, idx)
         ctx.shapes = (x.shape, y.shape, y_bias.shape)
-        return val.reshape(batch + (M,))
+        ctx.mark_non_differentiable(idx)
+        return val.reshape(batch + (M,)), idx.reshape(batch + (M,))
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
+    def backward(ctx, g: torch.Tensor, _g_idx=None):
         xf, yf, idx = ctx.saved_tensors
         x_shape, y_shape, bias_shape = ctx.shapes
         B, M = idx.shape
@@ -77,11 +82,17 @@ class MinSqdist(torch.autograd.Function):
         return dx, dy, dbias
 
 
-def min_sqdist(x: torch.Tensor, y: torch.Tensor, y_bias: torch.Tensor) -> torch.Tensor:
-    """[..., M, 3] x [..., V, 3] x [..., V] (leading dims broadcast) -> [..., M]."""
+def min_sqdist_argmin(x: torch.Tensor, y: torch.Tensor, y_bias: torch.Tensor):
+    """[..., M, 3] x [..., V, 3] x [..., V] (leading dims broadcast) ->
+    (min value [..., M], differentiable; argmin [..., M])."""
     batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2], y_bias.shape[:-1])
     return MinSqdist.apply(x.expand(batch + x.shape[-2:]), y.expand(batch + y.shape[-2:]),
                            y_bias.expand(batch + y.shape[-2:-1]))
+
+
+def min_sqdist(x: torch.Tensor, y: torch.Tensor, y_bias: torch.Tensor) -> torch.Tensor:
+    """[..., M, 3] x [..., V, 3] x [..., V] (leading dims broadcast) -> [..., M]."""
+    return min_sqdist_argmin(x, y, y_bias)[0]
 
 
 def _reduce(t: torch.Tensor, batch_dims: int) -> torch.Tensor:
@@ -98,6 +109,8 @@ def masked_chamfer(x: torch.Tensor, y: torch.Tensor, x_weights: Optional[torch.T
     """Weighted chamfer: sum(w * min_v d^2) / sum(w) over every (frame,
     marker), plus the unweighted mean of the reverse direction when
     bidirectional (``chamfer.py:248-272``)."""
+    if isinstance(y, sharded.VertexShards):
+        return sharded.masked_chamfer(x, y, x_weights, single_directional, batch_dims)
     x, y = _broadcast_clouds(x, y)
     if x_weights is None:
         x_weights = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
@@ -118,6 +131,9 @@ def masked_chamfer_vertex_subset(x: torch.Tensor, y: torch.Tensor, x_mask: torch
     """Chamfer against a masked vertex subset (``chamfer.py:285-328``):
     invalid vertices (and, backward, invalid markers) are pushed away by a
     1e10 bias instead of gathered, so every subset shares one shape."""
+    if isinstance(y, sharded.VertexShards):
+        return sharded.masked_chamfer_vertex_subset(x, y, x_mask, y_mask, single_directional,
+                                                    batch_dims, BIG)
     x, y = _broadcast_clouds(x, y)
     ym = y_mask.to(x.dtype).expand(y.shape[:-1])
     xm = x_mask.to(x.dtype).expand(x.shape[:-1])
@@ -215,6 +231,8 @@ def nearest_vertex_frames(markers: torch.Tensor, vertices: torch.Tensor
     ``squared_distance_matrix``'s value at the picked vertex (centered on the
     frame's vertex centroid, clamped at 0), as ``nearest_vertex`` returns it
     (``chamfer.py:89-92``)."""
+    if isinstance(vertices, sharded.VertexShards):
+        return sharded.nearest_vertex_frames(markers, vertices)
     idx = K.rank_nearest(markers.expand(vertices.shape[:-2] + markers.shape[-2:]), vertices)
     c = vertices.mean(dim=-2, keepdim=True)
     x = markers - c
@@ -230,6 +248,7 @@ def summed_frame_distances(markers: torch.Tensor, vertices: torch.Tensor,
     one sequence shared by every lane, or one per lane) -> [..., M, V].
     Frames are added one at a time, in order, as the reference's scan does,
     so only an [..., M, V] accumulator is ever held (no [F, M, V] tensor)."""
+    vertices = sharded.dense(vertices)
     F, M = markers.shape[-3], markers.shape[-2]
     lead = [markers.shape[:-3], vertices.shape[:-3]]
     if frame_weights is not None:
@@ -247,6 +266,8 @@ def mean_nearest_vertex_over_frames(markers: torch.Tensor, vertices: torch.Tenso
     """argmin_v of mean_f ||marker_mf - vertex_vf|| over masked frames
     (``chamfer.py:366-394``): markers [..., F, M, 3], vertices [..., F, V, 3],
     frame_mask [..., F] (leading lane dims broadcast) -> vertex ids [..., M]."""
+    if isinstance(vertices, sharded.VertexShards):
+        return sharded.mean_nearest_vertex_over_frames(markers, vertices, frame_mask)
     w = frame_mask.to(markers.dtype)
     acc = summed_frame_distances(markers, vertices, w)
     return (acc / torch.clamp_min(w.sum(-1), 1.0)[..., None, None]).argmin(dim=-1)

@@ -37,8 +37,16 @@ carries; a sequence without them raises ``ValueError`` when the config
 turns the stages on.  Under ``hypothesis_prune.rank_phase1`` the
 tournament's phase 1 descends with the rank-per-iteration chamfer solver.
 
-Not ported yet (it raises ``NotImplementedError``): a ``mesh`` (the
-vertex-sharded model axis, ROADMAP A.9).
+With ``mesh`` (``parallel/mesh.py:make_mesh``, a (data, model) grid of
+devices driven from this process) the model axis cuts the body model by
+vertex (``ShardedBodyModel``: every dense forward's min over V runs per
+block and combines across them, the gathered forward reads each vertex
+from its block) and the data axis splits every stage closure's lanes in
+contiguous blocks (``split_closure``), the L-BFGS state staying on the
+grid's first device; the scoring and correspondence passes run on that
+device.  A 1 x 1 grid on the model's device is the unsharded solve.  On
+one card a grid may name it twice (``make_mesh(devices=["cuda:0",
+"cuda:0"], data=1, model=2)``); on the CPU, ``devices=["cpu"] * n``.
 """
 from __future__ import annotations
 
@@ -54,6 +62,9 @@ from uuo_mocap_tpu_torch.device import resolve_device
 from uuo_mocap_tpu_torch.ops import rotations as rot
 from uuo_mocap_tpu_torch.ops.geometry import (
     get_aabb, get_aabb_volume, get_marker_mask, median, upsample_frames)
+from uuo_mocap_tpu_torch.ops.sharded import dense
+from uuo_mocap_tpu_torch.parallel.mesh import (
+    DeviceMesh, _norm_device, _shard_model_by_vertex, split_closure)
 from uuo_mocap_tpu_torch.pipeline.multimodal import (
     PreparedSequence, _mode_per_column, _numpy, _params_to_stage_dict, network_segmentation)
 from uuo_mocap_tpu_torch.pipeline.part_fit import PartFitter, _prune_rounds
@@ -107,15 +118,27 @@ def upsample_lane_params(params: SmplParams, F_full: int, stride: int) -> SmplPa
 class MultiSequenceSolver:
     """Solve a batch of same-shape sequences: the staged pipeline with
     sequences, hypotheses and subtrees as lanes of shared closures.  The
-    model must live on ``device`` (default: the card)."""
+    model must live on ``device`` (default: the mesh's first device, else
+    the card); with ``mesh`` it is placed on the grid (module docstring)."""
 
-    def __init__(self, model: BodyModel, config: Dict[str, Any], mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the vertex-sharded mesh (parallel/mesh.py) is not ported yet (ROADMAP A.9)")
+    def __init__(self, model: BodyModel, config: Dict[str, Any],
+                 mesh: Optional[DeviceMesh] = None, device=None):
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.DeviceMesh (make_mesh), "
+                            f"not {type(mesh).__name__}")
+        if mesh is not None and device is None:
+            device = mesh.devices[0, 0]
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, the solve runs on {self.device}")
+        self.mesh = None  # a grid other than 1 x 1 on the model's device
+        if mesh is not None and (mesh.size > 1 or _norm_device(model.device)
+                                 != _norm_device(mesh.devices[0, 0])):
+            if _norm_device(mesh.devices[0, 0]) != _norm_device(self.device):
+                raise ValueError(f"the solve runs on {self.device}, the mesh's first device "
+                                 f"is {mesh.devices[0, 0]}")
+            self.mesh = mesh
+            model = _shard_model_by_vertex(model, mesh)
         self.model = model
         self.config = config
         self.stages = SolveStages(model, config)
@@ -135,6 +158,7 @@ class MultiSequenceSolver:
         if part_w:
             self.part_fitter._solver.max_width = part_w
             self.part_fitter._solver.pad_width = self._pad_width
+        self._split_lanes(self.part_fitter._solver)
 
     @staticmethod
     def _seed_roots(angles: torch.Tensor, root_seed: torch.Tensor) -> torch.Tensor:
@@ -146,10 +170,22 @@ class MultiSequenceSolver:
         return rot.normalize_rotation(yaw @ root_seed[:, None])
 
     def _configure_solver(self, solver) -> None:
-        """Apply the sweep's lane width and padding to a stage solver."""
+        """Apply the sweep's lane width and padding, and the mesh's data
+        axis, to a stage solver."""
         if self.lane_width:
             solver.max_width = int(self.lane_width)
             solver.pad_width = self._pad_width
+        self._split_lanes(solver)
+
+    def _split_lanes(self, solver) -> None:
+        """Split a stage solver's closure (and its prepare hook) over the
+        mesh's data axis, once."""
+        if self.mesh is None or getattr(solver, "_mesh_split", False):
+            return
+        solver.fun = split_closure(solver.fun, self.mesh, self.model)
+        if solver.prepare is not None:
+            solver.prepare = split_closure(solver.prepare, self.mesh, self.model)
+        solver._mesh_split = True
 
     def phase1_solver(self):
         """The chamfer solver of the hypothesis tournament's phase 1
@@ -257,10 +293,10 @@ class MultiSequenceSolver:
 
         # ---- AABB part-vs-full heuristic per sequence, real frames only
         with timed("aabb"), torch.no_grad():
-            mean_vertices = _forward(model, SmplParams(
+            mean_vertices = dense(_forward(model, SmplParams(
                 o_pose_b.reshape(Q * F, 23, 3, 3), torch.zeros((1, 10), device=dev),
                 o_root_b.reshape(Q * F, 1, 3, 3), torch.zeros((Q * F, 3), device=dev),
-            ))["vertices"].reshape(Q, F, -1, 3)
+            ))["vertices"]).reshape(Q, F, -1, 3)
             aabb_ratios = np.asarray([
                 float(median(get_aabb_volume(get_aabb(markers_b[q, : p.F_real]))
                              / get_aabb_volume(get_aabb(mean_vertices[q, : p.F_real])), dim=0))

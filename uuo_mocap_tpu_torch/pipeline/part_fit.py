@@ -38,7 +38,7 @@ from uuo_mocap_tpu_torch.ops.chamfer import (
 from uuo_mocap_tpu_torch.ops.geometry import get_aabb, get_aabb_volume, median, upsample_frames
 from uuo_mocap_tpu_torch.pipeline.stages import (
     SmplParams, _data, _detach, _forward, _per_lane_weighted_mean, _ranked_nearest,
-    _require, _stage_opts,
+    _stage_opts,
 )
 from uuo_mocap_tpu_torch.solver import losses as L
 from uuo_mocap_tpu_torch.solver.lbfgs import BatchedLbfgs
@@ -77,9 +77,6 @@ def enumerate_subtree_masks(model: BodyModel, num_bones: int,
         for j in subtrees[i % S]:
             masks[i, vertex_labels == j] = 1.0
     return masks, subtrees
-
-
-_PART_LOSSES = {"chamfer", "reg_betas", "ground", "foot_contact", "foot_velocity", "velocity"}
 
 
 def pick_survivors(scores: np.ndarray, orig: np.ndarray, keep: int) -> np.ndarray:
@@ -140,7 +137,6 @@ class PartFitter:
     def _solver(self) -> BatchedLbfgs:
         cfg = self.config
         losses = cfg["stages"]["part"]["losses"]
-        _require(losses, _PART_LOSSES, "part")
         model = self.model
         # the sparse path unless a loss needs the dense vertices with
         # gradients (``ground``); the joints come from whichever forward ran

@@ -31,6 +31,7 @@ from uuo_mocap_tpu_torch.ops import rotations as rot
 from uuo_mocap_tpu_torch.ops.chamfer import (
     BIG, masked_chamfer, mean_nearest_vertex_over_frames, nearest_vertex_frames, part_vertex_index)
 from uuo_mocap_tpu_torch.ops.point_mesh import point_mesh_distance
+from uuo_mocap_tpu_torch.ops import sharded
 from uuo_mocap_tpu_torch.ops.rank_hier import RankTable, hierarchical_nearest, rank_table_for
 from uuo_mocap_tpu_torch.solver import losses as L
 from uuo_mocap_tpu_torch.solver.lbfgs import BatchedLbfgs, LbfgsOptions
@@ -96,7 +97,10 @@ def _ranked_nearest(markers: torch.Tensor, verts_ng: torch.Tensor,
                     y_bias: torch.Tensor | None = None) -> torch.Tensor:
     """No-grad nearest vertex per (lane, frame, marker): markers [(L,) F, M, 3],
     verts [L, F, V, 3], y_bias [L, V] or None -> [L, F, M].  On CUDA this is
-    the rank kernel (``chamfer_kernels.rank_nearest_cuda``)."""
+    the rank kernel (``chamfer_kernels.rank_nearest_cuda``); on a vertex-split
+    cloud, once per block (``ops.sharded.rank_nearest``)."""
+    if isinstance(verts_ng, sharded.VertexShards):
+        return sharded.rank_nearest(markers, verts_ng, y_bias)
     markers = markers.expand(verts_ng.shape[:-2] + markers.shape[-2:])
     return chamfer_kernels.rank_nearest(markers, verts_ng, y_bias)
 
@@ -117,7 +121,7 @@ def _sparse_chamfer(model: BodyModel, sp: SmplParams, markers, weights,
             idx = _ranked_nearest(markers, verts_ng)
         else:
             idx = hierarchical_nearest(markers.expand(verts_ng.shape[:-2] + markers.shape[-2:]),
-                                       verts_ng, table)
+                                       sharded.dense(verts_ng), table)
     return _sparse_chamfer_at(model, sp, markers, weights, idx)
 
 
@@ -127,23 +131,14 @@ def _sparse_chamfer_at(model: BodyModel, sp: SmplParams, markers, weights, idx) 
     return _per_lane_weighted_mean(((markers - pts) ** 2).sum(-1), weights)
 
 
-# loss keys whose gradients need no dense vertex tensor
+# loss keys whose gradients need no dense vertex tensor.  A stage reads the
+# keys it knows and ignores any other, as the reference does (a loss is on
+# when its key is present); an unknown key still sends the chamfer stage
+# down the dense branch, as there.
 _SPARSE_SAFE_LOSSES = {
     "full_chamfer", "reg_pose_body", "reg_betas", "trans_vel",
     "root_orient_vel", "temporal",
 }
-_CHAMFER_LOSSES = {"full_chamfer", "part_chamfer", "ground", "reg_pose_body", "reg_betas",
-                   "trans_vel", "root_orient_vel"}
-_ROOT_LOSSES = {"part_chamfer", "full_chamfer", "root_orient_vel", "trans_vel", "reg_betas",
-                "ground"}
-_MARKER_LOSSES = {"marker", "reg_pose_body", "reg_betas", "temporal"}
-
-
-def _require(losses, supported, stage):
-    extra = set(losses) - supported
-    if extra:
-        raise NotImplementedError(
-            f"{stage}-stage losses {sorted(extra)} are not ported yet (a later slice of the port)")
 
 
 def _vertex_attachment(vid: torch.Tensor, dtype) -> MarkerAttachment:
@@ -180,7 +175,6 @@ class SolveStages:
         cfg = self.config
         scfg = cfg["stages"]["root"]
         losses = scfg["losses"]
-        _require(losses, _ROOT_LOSSES, "root")
         model = self.model
         single_dir = bool(scfg["single_directional"])
 
@@ -273,13 +267,13 @@ class SolveStages:
         cfg = self.config
         scfg = cfg["stages"]["chamfer"]
         losses = scfg["losses"]
-        _require(losses, _CHAMFER_LOSSES, "chamfer")
         model = self.model
         single_dir = bool(scfg["single_directional"])
         # sparse-gradient path: exact when every active loss avoids dense
         # vertex tensors (the shipped config: full_chamfer + regs)
         sparse = single_dir and set(losses) <= _SPARSE_SAFE_LOSSES
-        table = rank_table_for(model) if sparse and cfg["optimizer"].get("rank_hier") else None
+        table = (rank_table_for(getattr(model, "base", model))
+                 if sparse and cfg["optimizer"].get("rank_hier") else None)
         rank_freeze = sparse and rank_per_iteration
 
         def to_smpl(p, d):
@@ -420,7 +414,7 @@ class SolveStages:
         [A, F, M, 3]), ``chunk`` frames at a time (the [chunk, M, T] working
         set of ``point_mesh_distance``)."""
         A, F, M, _ = markers.shape
-        mk, vs = markers.reshape(A * F, M, 3), vertices.reshape(A * F, -1, 3)
+        mk, vs = markers.reshape(A * F, M, 3), sharded.dense(vertices).reshape(A * F, -1, 3)
         outs = [point_mesh_distance(mk[f0:f0 + chunk], vs[f0:f0 + chunk], self.model.faces)
                 for f0 in range(0, A * F, chunk)]
         return (torch.cat([o["distance"] for o in outs]).reshape(A, F, M),
@@ -461,7 +455,6 @@ class SolveStages:
     def _marker_solver(self) -> BatchedLbfgs:
         cfg = self.config
         losses = cfg["stages"]["marker"]["losses"]
-        _require(losses, _MARKER_LOSSES, "marker")
         model = self.model
 
         def fun(p, lane, shared):
@@ -492,7 +485,8 @@ class SolveStages:
         """The SDF nets, loaded from the config's ``checkpoints_dir``."""
         from uuo_mocap_tpu_torch.models.sdf import SDF
 
-        return SDF(self.model, checkpoint_root=self.config.get("checkpoints_dir", "./checkpoints"))
+        return SDF(getattr(self.model, "base", self.model),
+                   checkpoint_root=self.config.get("checkpoints_dir", "./checkpoints"))
 
     @functools.cached_property
     def _marker_solver_sdf(self) -> BatchedLbfgs:
@@ -503,7 +497,6 @@ class SolveStages:
         reference's closure has no ``temporal`` term."""
         cfg = self.config
         losses = cfg["stages"]["marker"]["losses"]
-        _require(losses, _MARKER_LOSSES, "marker")
         model, sdf = self.model, self._sdf
 
         def fun(p, lane, shared):
@@ -512,7 +505,7 @@ class SolveStages:
             root = rot.rotation_6d_to_matrix(p["root6d"])
             out = _forward(model, SmplParams(pose, p["betas"], root, p["trans"]))
             bc = sdf.points_to_barycentric_one_hot(p["virtual_points"])  # [L, M, V]
-            virtual = torch.einsum("lmv,lfvd->lfmd", bc, out["vertices"])
+            virtual = torch.einsum("lmv,lfvd->lfmd", bc, sharded.dense(out["vertices"]))
             total = torch.zeros(pose.shape[0], dtype=pose.dtype, device=pose.device)
             if "marker" in losses:
                 total = total + losses["marker"] * L.marker_loss(d["markers"], virtual, d["weights"])

@@ -17,6 +17,7 @@ import torch
 
 from uuo_mocap_tpu_torch.ops import rotations as rot
 from uuo_mocap_tpu_torch.ops.chamfer import chamfer_by_part, masked_chamfer
+from uuo_mocap_tpu_torch.ops.sharded import dense
 from uuo_mocap_tpu_torch.settings import MARKER_DISTANCE
 
 
@@ -107,7 +108,7 @@ def ground_loss_joints(joints, frame_valid: Optional[torch.Tensor] = None):
 
 def ground_loss_vertices(vertices, frame_valid: Optional[torch.Tensor] = None):
     """Vertices [L, F, V, 3] below the ground plane (the part stage's form)."""
-    return _masked_or_mean(torch.relu(-vertices[..., 2]), frame_valid)
+    return _masked_or_mean(torch.relu(-dense(vertices)[..., 2]), frame_valid)
 
 
 _FEET = (10, 11)  # left and right foot joints
