@@ -8,12 +8,12 @@ whole-slice test: ``multimodal_video_mocap`` at F = 24 frames, M = 12
 markers with 5-iteration stages; the same keys, stages, chain and marker
 labels; parameters within 1e-2.
 
-Their batch solves are not run: with them the tier-1 run came within 140 s
-of its limit (their JAX programs take minutes to trace and compile there).
-The shipped configuration's batch solve is held by
-``tests/test_torch_batch_solver.py``; these configs change only the part
-fit's subtree set (hmr_full), the stages that run (hmr_full, hmr_part) and
-the number of yaw hypotheses (mht_rotation).
+Their batch solves, ``MultiSequenceSolver`` at 2 x 16 x 20 with 5-iteration
+stages, are held to the JAX package's in
+``tests/test_torch_batch_options_ablations.py``, with the batch solve's
+other options in ``tests/test_torch_batch_options*.py``.  These configs
+change only the part fit's subtree set (hmr_full), the stages that run
+(hmr_full, hmr_part) and the number of yaw hypotheses (mht_rotation).
 """
 import os
 
