@@ -251,7 +251,10 @@ def main(argv=None) -> int:
     parser.add_argument("--parts_list", nargs="+", default=[])
     parser.add_argument("--print_options", type=str, nargs="*", default=["loss", "progress"])
     parser.add_argument("--profile", type=str, default=None,
-                        help="write a torch.profiler Chrome trace (trace.json) to this dir")
+                        help="write a torch.profiler Chrome trace (trace.json) to this dir; "
+                             "it holds the port's spans: uuo.solve, uuo.stage.<stage>, "
+                             "uuo.part_fit.<phase>, uuo.lbfgs.{init,direction,line_search,"
+                             "eval,grad,refill} and uuo.sync (a host wait on the card)")
     parser.add_argument("--save_iterations", type=str, default=None,
                         help="write each sequence's iteration journal pkl to this directory "
                              "(sequential solves only)")

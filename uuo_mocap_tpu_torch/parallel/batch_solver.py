@@ -50,7 +50,6 @@ one card a grid may name it twice (``make_mesh(devices=["cuda:0",
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Any, Dict, List, Optional
 
@@ -71,6 +70,7 @@ from uuo_mocap_tpu_torch.pipeline.part_fit import PartFitter, _prune_rounds
 from uuo_mocap_tpu_torch.pipeline.reprojection import ReprojectionStage
 from uuo_mocap_tpu_torch.pipeline.segmentation import filter_rigid, segment_rigid
 from uuo_mocap_tpu_torch.pipeline.stages import SmplParams, SolveStages, _forward
+from uuo_mocap_tpu_torch.utils.tracing import spanned, stage, sync
 
 
 def _tree_map(fn, *trees):
@@ -201,6 +201,7 @@ class MultiSequenceSolver:
         return self.stages._chamfer_solver
 
     # ------------------------------------------------------------- full sweep
+    @spanned("solve")
     def solve_prepared(self, preps: List[PreparedSequence], print_options: List[str] = (),
                        save_stages: bool = False) -> Dict[str, Any]:
         """Full-pipeline batch solve of Q prepared sequences
@@ -244,13 +245,8 @@ class MultiSequenceSolver:
             for k, v in st.items():  # width and lanes are shapes, not sums
                 cur[k] = v if k in ("width", "lanes") else cur.get(k, 0) + v
 
-        @contextlib.contextmanager
         def timed(name):
-            t0 = time.time()
-            yield
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            stage_times[name] = stage_times.get(name, 0.0) + time.time() - t0
+            return stage(name, stage_times, dev)
 
         def log(msg):
             if progress:
@@ -298,8 +294,9 @@ class MultiSequenceSolver:
                 o_root_b.reshape(Q * F, 1, 3, 3), torch.zeros((Q * F, 3), device=dev),
             ))["vertices"]).reshape(Q, F, -1, 3)
             aabb_ratios = np.asarray([
-                float(median(get_aabb_volume(get_aabb(markers_b[q, : p.F_real]))
-                             / get_aabb_volume(get_aabb(mean_vertices[q, : p.F_real])), dim=0))
+                sync(float, median(get_aabb_volume(get_aabb(markers_b[q, : p.F_real]))
+                                   / get_aabb_volume(get_aabb(mean_vertices[q, : p.F_real])),
+                                   dim=0))
                 for q, p in enumerate(preps)])
             del mean_vertices
 
@@ -369,7 +366,7 @@ class MultiSequenceSolver:
                 params_root, res_r = stages.root_stage_lanes(
                     markers_b, weights_b, o_pose_b, o_betas_b, betas_seed, root_seed, trans_seed,
                     labels_mode_b, frame_valid_b)
-            total_evals += int(res_r.num_evals.sum())
+            total_evals += sync(int, res_r.num_evals.sum())
             grab_stats("root", stages._root_solver)
             root_seed, trans_seed, betas_seed = (
                 params_root.root_orient, params_root.trans, params_root.betas)
@@ -433,7 +430,7 @@ class MultiSequenceSolver:
                         finally:
                             solver.iter_cap = None
                     done_iters = at_iters
-                    total_evals += int(res_p.num_evals.sum())
+                    total_evals += sync(int, res_p.num_evals.sum())
                     grab_stats("chamfer", solver)
                     with timed("prune_score"):
                         pscores = _numpy(chunked_lanes(stages.score_chamfer_lanes, W, mk_s, wt_s,
@@ -457,7 +454,7 @@ class MultiSequenceSolver:
                 chamfer_all, res_c = stages.chamfer_stage_lanes(
                     markers_l, weights_l, o_pose_l, o_betas_l, pose0_l, betas0_l, root0_l,
                     trans0_l, labels_l, fv_l)
-            total_evals += int(res_c.num_evals.sum())
+            total_evals += sync(int, res_c.num_evals.sum())
             grab_stats("chamfer", stages._chamfer_solver)
         else:
             chamfer_all = SmplParams(pose0_l, betas0_l, root0_l, trans0_l)
@@ -473,7 +470,7 @@ class MultiSequenceSolver:
             with timed("marker"):
                 marker_all, res_m = marker_lanes(
                     markers_l, weights_l, o_pose_l, o_betas_l, chamfer_all, attach_all, fv_l)
-            total_evals += int(res_m.num_evals.sum())
+            total_evals += sync(int, res_m.num_evals.sum())
             grab_stats("marker", self.marker_solver)
         else:
             marker_all = chamfer_all
@@ -512,49 +509,49 @@ class MultiSequenceSolver:
                     params_q, res_f = marker_lanes(
                         markers_b, weights_b, params_q.pose_body, o_betas_b, params_q, attach_q,
                         frame_valid_b)
-                total_evals += int(res_f.num_evals.sum())
+                total_evals += sync(int, res_f.num_evals.sum())
                 grab_stats("marker_final", self.marker_solver)
 
-        # ---- per-sequence output assembly
-        t_asm = time.time()
-        results = []
-        trans_np = _numpy(params_q.trans)
-        root_np = _numpy(rot.normalize_rotation(params_q.root_orient))
-        pose_np = _numpy(rot.normalize_rotation(params_q.pose_body))
-        betas_np = _numpy(params_q.betas)
-        for q in range(Q):
-            Fr, Mr = preps[q].F_real, preps[q].M_real
-            out: Dict[str, Any] = {
-                "trans": trans_np[q, :Fr], "root_orient": root_np[q, :Fr],
-                "pose_body": pose_np[q, :Fr],
-                "betas": np.broadcast_to(betas_np[q], (Fr, 10)).copy(),
-                "mocap_frame_rate": preps[q].mocap_freq,
-                "markers_labels": np.asarray(marker_labels_out[q])[:Fr, :Mr],
-                "best_hypothesis": int(best[q]),
-            }
-            if chains[q] is not None:
-                out["chain"] = chains[q]
-            if save_stages:
-                def at_q(p):
-                    return SmplParams(*(x[q] for x in p))
+        # ---- per-sequence output assembly (its reads drain the queue: no
+        #      synchronize at its end)
+        with stage("assemble", stage_times):
+            results = []
+            trans_np = _numpy(params_q.trans)
+            root_np = _numpy(rot.normalize_rotation(params_q.root_orient))
+            pose_np = _numpy(rot.normalize_rotation(params_q.pose_body))
+            betas_np = _numpy(params_q.betas)
+            for q in range(Q):
+                Fr, Mr = preps[q].F_real, preps[q].M_real
+                out: Dict[str, Any] = {
+                    "trans": trans_np[q, :Fr], "root_orient": root_np[q, :Fr],
+                    "pose_body": pose_np[q, :Fr],
+                    "betas": np.broadcast_to(betas_np[q], (Fr, 10)).copy(),
+                    "mocap_frame_rate": preps[q].mocap_freq,
+                    "markers_labels": np.asarray(marker_labels_out[q])[:Fr, :Mr],
+                    "best_hypothesis": int(best[q]),
+                }
+                if chains[q] is not None:
+                    out["chain"] = chains[q]
+                if save_stages:
+                    def at_q(p):
+                        return SmplParams(*(x[q] for x in p))
 
-                stage_dicts = {}
-                if cfg["find_best_part_fits"] and not fallback[q]:
-                    stage_dicts["part"] = _params_to_stage_dict(SmplParams(
-                        o_pose_b[q], part_seeds[0][q], part_seeds[1][q], part_seeds[2][q]))
-                if do_root:
-                    stage_dicts["root"] = _params_to_stage_dict(at_q(params_root))
-                if do_chamfer:
-                    stage_dicts["chamfer"] = _params_to_stage_dict(at_q(chamfer_q))
-                if do_marker:
-                    stage_dicts["marker"] = _params_to_stage_dict(at_q(marker_q))
-                    stage_dicts["marker_final"] = _params_to_stage_dict(at_q(params_q))
-                for sd in stage_dicts.values():
-                    for key in ("trans", "root_orient", "pose_body"):
-                        sd[key] = sd[key][:Fr]
-                out["stages"] = stage_dicts
-            results.append(out)
-        stage_times["assemble"] = stage_times.get("assemble", 0.0) + time.time() - t_asm
+                    stage_dicts = {}
+                    if cfg["find_best_part_fits"] and not fallback[q]:
+                        stage_dicts["part"] = _params_to_stage_dict(SmplParams(
+                            o_pose_b[q], part_seeds[0][q], part_seeds[1][q], part_seeds[2][q]))
+                    if do_root:
+                        stage_dicts["root"] = _params_to_stage_dict(at_q(params_root))
+                    if do_chamfer:
+                        stage_dicts["chamfer"] = _params_to_stage_dict(at_q(chamfer_q))
+                    if do_marker:
+                        stage_dicts["marker"] = _params_to_stage_dict(at_q(marker_q))
+                        stage_dicts["marker_final"] = _params_to_stage_dict(at_q(params_q))
+                    for sd in stage_dicts.values():
+                        for key in ("trans", "root_orient", "pose_body"):
+                            sd[key] = sd[key][:Fr]
+                    out["stages"] = stage_dicts
+                results.append(out)
         return {
             "results": results,
             "lbfgs_evals": total_evals,

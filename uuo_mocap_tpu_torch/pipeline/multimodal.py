@@ -29,6 +29,7 @@ from uuo_mocap_tpu_torch.pipeline.segmentation import (
     chains_from_labels, filter_rigid, merge_symmetric_labels, segment_markers_network,
     segment_rigid)
 from uuo_mocap_tpu_torch.pipeline.stages import SmplParams, SolveStages, _forward
+from uuo_mocap_tpu_torch.utils.tracing import spanned, stage, sync
 
 
 def resample_smpl_stream(trans: np.ndarray, root_orient: np.ndarray, pose_body: np.ndarray,
@@ -65,7 +66,7 @@ def pad_stream(x: np.ndarray, offset: int) -> np.ndarray:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    return sync(t.detach().cpu).numpy()
 
 
 def _params_to_stage_dict(params: SmplParams) -> Dict[str, np.ndarray]:
@@ -248,6 +249,7 @@ def network_segmentation(model: BodyModel, prep: PreparedSequence, checkpoint_ro
     return labels, merged, chains_from_labels(merged, model.parents)
 
 
+@spanned("solve")
 def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], model: BodyModel,
                            offset: Optional[int] = None, print_options: List[str] = (),
                            save_stages: bool = False, iter_journal=None,
@@ -271,13 +273,8 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
     part_fitter = PartFitter(model, config)
     stage_times: Dict[str, float] = {}
 
-    @contextlib.contextmanager
     def timed(name):
-        t0 = time.time()
-        yield
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        stage_times[name] = stage_times.get(name, 0.0) + time.time() - t0
+        return stage(name, stage_times, dev)
 
     prep = prepare_sequence(img_smpl, mocap_markers, offset=offset, frame_bucket=frame_bucket)
     mocap_freq = prep.mocap_freq
@@ -320,7 +317,7 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
     # ---- AABB part-vs-full heuristic
     with torch.no_grad():
         mean_out = _forward(model, SmplParams(o_pose_body, o_betas * 0, o_root_orient, o_trans * 0))
-        aabb_ratio = float(median(
+        aabb_ratio = sync(float, median(
             get_aabb_volume(get_aabb(markers[:F_real]))
             / get_aabb_volume(get_aabb(mean_out["vertices"][:F_real])), dim=0))
 
@@ -407,7 +404,7 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
             params_root, res_r = stages.root_stage(
                 markers, weights, o_pose_body, betas, root_orient, trans, marker_labels_mode,
                 o_betas, frame_valid=frame_valid)
-        total_evals += int(res_r.num_evals.sum())
+        total_evals += sync(int, res_r.num_evals.sum())
         root_orient, trans, betas = params_root.root_orient, params_root.trans, params_root.betas
         if save_stages:
             output["stages"]["root"] = _params_to_stage_dict(params_root)
@@ -435,7 +432,7 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
             chamfer_all, res_c = stages.chamfer_stage_batched(
                 markers, weights, o_pose_body, o_betas, o_pose_body, betas, root0_batch, trans,
                 marker_labels_mode, frame_valid=frame_valid)
-        total_evals += int(res_c.num_evals.sum())
+        total_evals += sync(int, res_c.num_evals.sum())
     else:
         chamfer_all = SmplParams(tile(o_pose_body), tile(betas), root0_batch, tile(trans))
 
@@ -450,7 +447,7 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
             marker_all, res_m = stages.marker_stage_batched(
                 markers, weights, o_pose_body, o_betas, chamfer_all, attach_all,
                 frame_valid=frame_valid)
-        total_evals += int(res_m.num_evals.sum())
+        total_evals += sync(int, res_m.num_evals.sum())
     else:
         marker_all = chamfer_all
 
@@ -484,7 +481,7 @@ def multimodal_video_mocap(img_smpl, mocap_markers, config: Dict[str, Any], mode
                     SmplParams(*(t[None] for t in params)),
                     type(attachment)(*(t[None] for t in attachment)), frame_valid=frame_valid)
             params = SmplParams(*(t[0] for t in params_b))
-            total_evals += int(res_f.num_evals.sum())
+            total_evals += sync(int, res_f.num_evals.sum())
             if iter_journal is not None:
                 iter_journal.record(f"marker_final_{rep}", params=params)
         if save_stages:

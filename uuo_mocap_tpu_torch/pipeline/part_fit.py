@@ -18,7 +18,6 @@ Flow (cluster mode, the shipped default):
 from __future__ import annotations
 
 import functools
-import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -42,6 +41,7 @@ from uuo_mocap_tpu_torch.pipeline.stages import (
 )
 from uuo_mocap_tpu_torch.solver import losses as L
 from uuo_mocap_tpu_torch.solver.lbfgs import BatchedLbfgs
+from uuo_mocap_tpu_torch.utils.tracing import span, sync
 
 
 class PartFitResult(NamedTuple):
@@ -69,7 +69,7 @@ def enumerate_subtree_masks(model: BodyModel, num_bones: int,
     subtrees = get_sub_hierarchies(model.parents, num_bones)
     if similarity_threshold is not None and len(subtrees) > 1:
         subtrees = remove_approximately_redundant_hierarchies(subtrees, similarity_threshold)
-    vertex_labels = model.vertex_part_labels().cpu().numpy()
+    vertex_labels = sync(model.vertex_part_labels().cpu).numpy()
     S = len(subtrees)
     S_pad = max(pad_multiple, ((S + pad_multiple - 1) // pad_multiple) * pad_multiple)
     masks = np.zeros((S_pad, vertex_labels.shape[0]), np.float32)
@@ -234,7 +234,7 @@ class PartFitter:
         chain covers a single marker) and the fitted marker columns."""
         uniq = np.unique(np.round(scores, 12))
         ratio = float(uniq[1] / uniq[0]) if len(uniq) > 1 else 0.0
-        fitted_cols = (marker_weights.amax(dim=0) > 0).cpu().numpy()
+        fitted_cols = sync((marker_weights.amax(dim=0) > 0).cpu).numpy()
         if int(fitted_cols.sum()) == 1:
             ratio = 0.0
         return ratio, fitted_cols
@@ -245,9 +245,9 @@ class PartFitter:
         """AABB volume of the fitted marker subset over all markers', real
         frames only."""
         F = markers.shape[0]
-        valid_rows = (frame_valid.cpu().numpy() > 0 if frame_valid is not None
+        valid_rows = (sync(frame_valid.cpu).numpy() > 0 if frame_valid is not None
                       else np.ones(F, bool))
-        m_np = markers.cpu().numpy()[valid_rows]
+        m_np = sync(markers.cpu).numpy()[valid_rows]
         flat = torch.as_tensor(m_np.reshape(-1, 3))
         sub = torch.as_tensor(m_np[:, fitted_cols].reshape(-1, 3))
         return get_aabb_volume(get_aabb(sub)) / torch.clamp_min(get_aabb_volume(get_aabb(flat)), 1e-12)
@@ -266,75 +266,67 @@ class PartFitter:
         descend every lane to ``at_iters`` (on every ``frame_stride``-th
         frame), score them, and keep the best ``keep`` distinct subtrees per
         sequence; the survivors then descend to convergence at full frames.
-        Phase wall times (synchronized on CUDA) go to ``last_phase_times``.
+        Each phase runs in a ``uuo.part_fit.<phase>`` span (``utils/tracing.py``).
         foot_contacts [Q, F, 2] feed the foot losses (zeros when None)."""
         dev = markers_b.device
-        self.last_phase_times: Dict[str, float] = {}
-        t_last = [time.time()]
+        with span("part_fit.setup"):
+            Q, F, M, _ = markers_b.shape
+            if foot_contacts_b is None:
+                foot_contacts_b = markers_b.new_zeros((Q, F, 2))
+            if frame_valid_b is None:
+                frame_valid_b = markers_b.new_ones((Q, F))
+            per_seq = []
+            for q in range(Q):
+                masks_np, subtrees = self._subtree_masks(int(num_rigid_groups[q]))
+                # lane -> ORIGINAL subtree index (lane i pads with subtrees[i % S])
+                per_seq.append((masks_np, subtrees, np.arange(masks_np.shape[0]) % len(subtrees)))
+            S_max = max(m.shape[0] for m, _, _ in per_seq)
 
-        def tick(label):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.time()
-            self.last_phase_times[label] = self.last_phase_times.get(label, 0.0) + now - t_last[0]
-            t_last[0] = now
+            def pad_rows(m):
+                reps = np.arange(S_max - m.shape[0]) % m.shape[0]
+                return np.concatenate([m, m[reps]], axis=0)
 
-        Q, F, M, _ = markers_b.shape
-        if foot_contacts_b is None:
-            foot_contacts_b = markers_b.new_zeros((Q, F, 2))
-        if frame_valid_b is None:
-            frame_valid_b = markers_b.new_ones((Q, F))
-        per_seq = []
-        for q in range(Q):
-            masks_np, subtrees = self._subtree_masks(int(num_rigid_groups[q]))
-            # lane -> ORIGINAL subtree index (lane i pads with subtrees[i % S])
-            per_seq.append((masks_np, subtrees, np.arange(masks_np.shape[0]) % len(subtrees)))
-        S_max = max(m.shape[0] for m, _, _ in per_seq)
+            masks = torch.as_tensor(np.stack([pad_rows(m) for m, _, _ in per_seq]), device=dev)
+            lane_orig = np.stack([pad_rows(o) for _, _, o in per_seq])  # [Q, S_max]
+            Ln = Q * S_max
 
-        def pad_rows(m):
-            reps = np.arange(S_max - m.shape[0]) % m.shape[0]
-            return np.concatenate([m, m[reps]], axis=0)
+            def lane_rep(x):  # [Q, ...] -> [Q * S_max, ...], sequence-major
+                return x.repeat_interleave(S_max, dim=0)
 
-        masks = torch.as_tensor(np.stack([pad_rows(m) for m, _, _ in per_seq]), device=dev)
-        lane_orig = np.stack([pad_rows(o) for _, _, o in per_seq])  # [Q, S_max]
-        Ln = Q * S_max
+            params0 = {"z": torch.zeros((Ln, 1, 1, 1), dtype=markers_b.dtype, device=dev),
+                       "trans": lane_rep(median(markers_b, dim=2)), "betas": lane_rep(o_betas_b)}
+            lane = {"vertex_mask": masks.reshape(Ln, -1), "markers": lane_rep(markers_b),
+                    "marker_weights": lane_rep(marker_weights_b),
+                    "o_pose_body": lane_rep(o_pose_body_b), "o_betas": lane_rep(o_betas_b),
+                    "root_orient0": lane_rep(root_orient0_b),
+                    "foot_contacts": lane_rep(foot_contacts_b),
+                    "frame_valid": lane_rep(frame_valid_b)}
 
-        def lane_rep(x):  # [Q, ...] -> [Q * S_max, ...], sequence-major
-            return x.repeat_interleave(S_max, dim=0)
+            prune = dict((self.config.get("parallel") or {}).get("part_prune") or {})
+            rounds, fstrides = _prune_rounds(prune, 15, 2, "part_prune")
+            do_prune = bool(prune.get("enabled")) and S_max > rounds[-1][1]
 
-        params0 = {"z": torch.zeros((Ln, 1, 1, 1), dtype=markers_b.dtype, device=dev),
-                   "trans": lane_rep(median(markers_b, dim=2)), "betas": lane_rep(o_betas_b)}
-        lane = {"vertex_mask": masks.reshape(Ln, -1), "markers": lane_rep(markers_b),
-                "marker_weights": lane_rep(marker_weights_b), "o_pose_body": lane_rep(o_pose_body_b),
-                "o_betas": lane_rep(o_betas_b), "root_orient0": lane_rep(root_orient0_b),
-                "foot_contacts": lane_rep(foot_contacts_b), "frame_valid": lane_rep(frame_valid_b)}
+            agg_stats: Dict[str, int] = {}  # eval accounting across every phase
 
-        prune = dict((self.config.get("parallel") or {}).get("part_prune") or {})
-        rounds, fstrides = _prune_rounds(prune, 15, 2, "part_prune")
-        do_prune = bool(prune.get("enabled")) and S_max > rounds[-1][1]
+            def merge_stats(st):
+                for k, v in st.items():
+                    agg_stats[k] = v if k in ("width", "lanes") else agg_stats.get(k, 0) + v
 
-        agg_stats: Dict[str, int] = {}  # eval accounting across every phase
+            def lane_stride(ln, s):
+                return ln if s == 1 else {k: (v[:, ::s] if k in _LANE_F_KEYS else v)
+                                          for k, v in ln.items()}
 
-        def merge_stats(st):
-            for k, v in st.items():
-                agg_stats[k] = v if k in ("width", "lanes") else agg_stats.get(k, 0) + v
+            def trans_restride(t, from_s, to_s):
+                if from_s == to_s:
+                    return t
+                if from_s > 1:
+                    t = upsample_frames(t, F, from_s)
+                return t[:, ::to_s] if to_s > 1 else t
 
-        def lane_stride(ln, s):
-            return ln if s == 1 else {k: (v[:, ::s] if k in _LANE_F_KEYS else v)
-                                      for k, v in ln.items()}
-
-        def trans_restride(t, from_s, to_s):
-            if from_s == to_s:
-                return t
-            if from_s > 1:
-                t = upsample_frames(t, F, from_s)
-            return t[:, ::to_s] if to_s > 1 else t
-
-        sub_ids = np.tile(np.arange(S_max), (Q, 1))  # padded lane index of each live lane
-        S_cur = S_max
-        evals_per_seq = np.zeros(Q, np.int64)
-        scores_rows = np.full((Q, S_max), np.inf)  # best-known score per subtree lane
-        tick("setup")
+            sub_ids = np.tile(np.arange(S_max), (Q, 1))  # padded lane index of each live lane
+            S_cur = S_max
+            evals_per_seq = np.zeros(Q, np.int64)
+            scores_rows = np.full((Q, S_max), np.inf)  # best-known score per subtree lane
         p_stride = 1
         solver = self._solver
         if do_prune:
@@ -342,82 +334,86 @@ class PartFitter:
             for (at_iters, keep), r_stride in zip(rounds, fstrides):
                 if S_cur <= keep:
                     continue
-                if p_stride != r_stride:
-                    params0 = dict(params0, trans=trans_restride(params0["trans"], p_stride, r_stride))
-                    p_stride = r_stride
-                lane_r = lane_stride(lane, r_stride)
-                solver.iter_cap = max(at_iters - done_iters, 1)
-                try:
-                    p_opt, res = solver.run(params0, lane_r, {})
-                finally:
-                    solver.iter_cap = None
-                merge_stats(solver.last_run_stats)
-                done_iters = at_iters
-                evals_per_seq += res.num_evals.cpu().numpy().reshape(Q, S_cur).sum(axis=1)
-                tick("descend_prune")
-                sc = self._score_lanes_any(
-                    p_opt["z"], p_opt["betas"], p_opt["trans"], lane_r["vertex_mask"],
-                    lane_r["markers"], lane_r["marker_weights"], lane_r["o_pose_body"],
-                    lane_r["root_orient0"]).cpu().numpy().reshape(Q, S_cur)
-                tick("score_prune")
-                for q in range(Q):
-                    scores_rows[q, sub_ids[q]] = sc[q]
-                local = np.stack([pick_survivors(sc[q], lane_orig[q, sub_ids[q]], keep)
-                                  for q in range(Q)])
-                sub_ids = np.take_along_axis(sub_ids, local, axis=1)
-                surv = torch.as_tensor((np.arange(Q)[:, None] * S_cur + local).reshape(-1),
-                                       device=dev)
-                params0 = {k: v[surv] for k, v in p_opt.items()}
-                lane = {k: v[surv] for k, v in lane.items()}
-                S_cur = keep
-                tick("survivor_gather")
-        if p_stride > 1:  # the final descent runs at full frames
-            params0 = dict(params0, trans=trans_restride(params0["trans"], p_stride, 1))
+                with span("part_fit.descend_prune"):
+                    if p_stride != r_stride:
+                        params0 = dict(params0, trans=trans_restride(params0["trans"], p_stride,
+                                                                     r_stride))
+                        p_stride = r_stride
+                    lane_r = lane_stride(lane, r_stride)
+                    solver.iter_cap = max(at_iters - done_iters, 1)
+                    try:
+                        p_opt, res = solver.run(params0, lane_r, {})
+                    finally:
+                        solver.iter_cap = None
+                    merge_stats(solver.last_run_stats)
+                    done_iters = at_iters
+                    evals_per_seq += sync(res.num_evals.cpu).numpy().reshape(Q, S_cur).sum(axis=1)
+                with span("part_fit.score_prune"):
+                    sc = sync(self._score_lanes_any(
+                        p_opt["z"], p_opt["betas"], p_opt["trans"], lane_r["vertex_mask"],
+                        lane_r["markers"], lane_r["marker_weights"], lane_r["o_pose_body"],
+                        lane_r["root_orient0"]).cpu).numpy().reshape(Q, S_cur)
+                with span("part_fit.survivor_gather"):
+                    for q in range(Q):
+                        scores_rows[q, sub_ids[q]] = sc[q]
+                    local = np.stack([pick_survivors(sc[q], lane_orig[q, sub_ids[q]], keep)
+                                      for q in range(Q)])
+                    sub_ids = np.take_along_axis(sub_ids, local, axis=1)
+                    surv = torch.as_tensor((np.arange(Q)[:, None] * S_cur + local).reshape(-1),
+                                           device=dev)
+                    params0 = {k: v[surv] for k, v in p_opt.items()}
+                    lane = {k: v[surv] for k, v in lane.items()}
+                    S_cur = keep
 
-        p_opt, res = solver.run(params0, lane, {})
-        merge_stats(solver.last_run_stats)
-        solver.last_run_stats = agg_stats
-        evals_per_seq += res.num_evals.cpu().numpy().reshape(Q, S_cur).sum(axis=1)
-        tick("descend_final")
-        sc_final = self._score_lanes_any(
-            p_opt["z"], p_opt["betas"], p_opt["trans"], lane["vertex_mask"], lane["markers"],
-            lane["marker_weights"], lane["o_pose_body"], lane["root_orient0"]
-        ).cpu().numpy().reshape(Q, S_cur)
-        tick("score_final")
-        for q in range(Q):
-            scores_rows[q, sub_ids[q]] = sc_final[q]
-        # survivors carry their final scores, pruned lanes their last
-        # tournament score
+        with span("part_fit.descend_final"):
+            if p_stride > 1:  # the final descent runs at full frames
+                params0 = dict(params0, trans=trans_restride(params0["trans"], p_stride, 1))
+            p_opt, res = solver.run(params0, lane, {})
+            merge_stats(solver.last_run_stats)
+            solver.last_run_stats = agg_stats
+            evals_per_seq += sync(res.num_evals.cpu).numpy().reshape(Q, S_cur).sum(axis=1)
+        with span("part_fit.score_final"):
+            sc_final = sync(self._score_lanes_any(
+                p_opt["z"], p_opt["betas"], p_opt["trans"], lane["vertex_mask"], lane["markers"],
+                lane["marker_weights"], lane["o_pose_body"], lane["root_orient0"]
+            ).cpu).numpy().reshape(Q, S_cur)
+        with span("part_fit.relabel"):
+            for q in range(Q):
+                scores_rows[q, sub_ids[q]] = sc_final[q]
+            # survivors carry their final scores, pruned lanes their last
+            # tournament score
 
-        best_local = np.argmin(sc_final, axis=1)  # [Q] index into the survivors
-        best = sub_ids[np.arange(Q), best_local]  # [Q] padded lane index
-        sel = torch.as_tensor(np.arange(Q) * S_cur + best_local, device=dev)
-        labels_b, best_root_b = self._relabel_q(markers_b, p_opt["z"][sel], p_opt["betas"][sel],
-                                                p_opt["trans"][sel], o_pose_body_b, root_orient0_b)
-        tick("relabel")
+            best_local = np.argmin(sc_final, axis=1)  # [Q] index into the survivors
+            best = sub_ids[np.arange(Q), best_local]  # [Q] padded lane index
+            sel_np = np.arange(Q) * S_cur + best_local  # [Q] lane of each sequence's winner
+            sel = torch.as_tensor(sel_np, device=dev)
+            labels_b, best_root_b = self._relabel_q(markers_b, p_opt["z"][sel],
+                                                    p_opt["betas"][sel], p_opt["trans"][sel],
+                                                    o_pose_body_b, root_orient0_b)
 
-        results = []
-        for q in range(Q):
-            row = scores_rows[q]
-            # the confidence ratio from the survivors' converged scores when
-            # they hold two distinct values (pruned lanes' scores are stale)
-            cand = sc_final[q] if len(np.unique(np.round(sc_final[q], 12))) >= 2 \
-                else row[np.isfinite(row)]
-            ratio, fitted_cols = self._confidence(cand, marker_weights_b[q])
-            weights_out = (torch.as_tensor(fitted_cols, dtype=markers_b.dtype, device=dev)[None, :]
-                           * ratio).expand(F, M)
-            results.append(PartFitResult(
-                params=SmplParams(o_pose_body_b[q], p_opt["betas"][int(sel[q])], best_root_b[q],
-                                  p_opt["trans"][int(sel[q])]),
-                marker_labels=labels_b[q][None].expand(F, M),
-                marker_weights=weights_out,
-                chain=np.asarray(per_seq[q][1][int(lane_orig[q, best[q]])], np.int32),
-                distance=torch.as_tensor(row[int(best[q])]),
-                aabb_volume_ratio=self._aabb_ratio(markers_b[q], fitted_cols, frame_valid_b[q]),
-                subtree_losses=torch.as_tensor(row),
-                lbfgs_evals=int(evals_per_seq[q]),
-            ))
-        tick("assemble")
+        with span("part_fit.assemble"):
+            results = []
+            for q in range(Q):
+                row = scores_rows[q]
+                # the confidence ratio from the survivors' converged scores when
+                # they hold two distinct values (pruned lanes' scores are stale)
+                cand = sc_final[q] if len(np.unique(np.round(sc_final[q], 12))) >= 2 \
+                    else row[np.isfinite(row)]
+                ratio, fitted_cols = self._confidence(cand, marker_weights_b[q])
+                weights_out = (torch.as_tensor(fitted_cols, dtype=markers_b.dtype,
+                                               device=dev)[None, :] * ratio).expand(F, M)
+                results.append(PartFitResult(
+                    params=SmplParams(o_pose_body_b[q], p_opt["betas"][int(sel_np[q])],
+                                      best_root_b[q], p_opt["trans"][int(sel_np[q])]),
+                    marker_labels=labels_b[q][None].expand(F, M),
+                    marker_weights=weights_out,
+                    chain=np.asarray(per_seq[q][1][int(lane_orig[q, best[q]])], np.int32),
+                    distance=torch.as_tensor(row[int(best[q])]),
+                    aabb_volume_ratio=self._aabb_ratio(markers_b[q], fitted_cols,
+                                                       frame_valid_b[q]),
+                    subtree_losses=torch.as_tensor(row),
+                    lbfgs_evals=int(evals_per_seq[q]),
+                ))
         return results
 
     def __call__(self, markers: torch.Tensor, marker_weights: torch.Tensor,
@@ -447,7 +443,7 @@ class PartFitter:
 
         scores_s = self._score_lanes_any(p_opt["z"], p_opt["betas"], p_opt["trans"], masks,
                                          markers, marker_weights, o_pose_body, root_orient0)
-        scores = scores_s.cpu().numpy()
+        scores = sync(scores_s.cpu).numpy()
         best = int(np.argmin(scores))  # padding lanes repeat real subtrees
         labels, best_root = self._relabel_q(markers[None], p_opt["z"][best][None],
                                             p_opt["betas"][best][None], p_opt["trans"][best][None],

@@ -17,7 +17,8 @@ gives every lane its own gradient because lanes do not interact.  A lane
 that has finished (or whose line search has) is frozen: its state and its
 counters stop, exactly as under the reference's ``vmap`` of ``while_loop``.
 The host reads one flag per line-search evaluation to decide whether any
-lane is still running.
+lane is still running; each such read goes through ``utils.tracing.sync``,
+and a traced run sees the ``uuo.lbfgs.*`` spans (``utils/tracing.py``).
 
 Two optional hooks follow the reference.  ``prepare(x) -> aux`` computes
 non-differentiated data once per iteration (the rank freeze: nearest-vertex
@@ -33,6 +34,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from uuo_mocap_tpu_torch.utils.tracing import span, spanned, sync, sync_count
 
 # iterations per segment of the reference's device loop (``stages.py:47``):
 # the rate at which ``BatchedLbfgs.snapshot`` sees the parameters
@@ -95,10 +98,13 @@ def _pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([a, b], dim=1)
 
 
+@spanned("lbfgs.line_search")
 def _strong_wolfe(eval_fd, t, d, f, g, gtd, opts: LbfgsOptions):
     """Per-lane strong-Wolfe search from t [L] along d [L, n], as the
     reference's single-evaluation-site state machine.  ``eval_fd(t)``
-    evaluates every lane at x + t*d.  Returns (f_new, g_new, t, n_evals)."""
+    evaluates every lane at x + t*d.  Returns (f_new, g_new, t, n_evals,
+    exhausted): ``exhausted`` [L] marks the lanes whose search stopped at
+    ``max_ls`` evaluations without meeting its conditions."""
     c1, c2 = opts.c1, opts.c2
     tol = 1e-9  # torch hard-codes tolerance_change=1e-9 inside the search
     d_norm = d.abs().amax(-1)
@@ -118,7 +124,7 @@ def _strong_wolfe(eval_fd, t, d, f, g, gtd, opts: LbfgsOptions):
 
     while True:
         active = (~s["done"]) & (s["ls_iter"] < opts.max_ls)
-        if not bool(active.any()):
+        if not sync(bool, active.any()):
             break
         t_c = s["t_c"]
         f_c, g_c = eval_fd(t_c)
@@ -205,15 +211,16 @@ def _strong_wolfe(eval_fd, t, d, f, g, gtd, opts: LbfgsOptions):
 
     low = torch.where(s["br_f"][:, 0] <= s["br_f"][:, 1], 0, 1)
     return (_pick(s["br_f"], low), _pick(s["br_g"], low), _pick(s["br_t"], low),
-            1 + s["ls_iter"])
+            1 + s["ls_iter"], ~s["done"])
 
 
 def _value_and_grad(fun: Callable[[torch.Tensor], torch.Tensor],
                     x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    with torch.enable_grad():
+    with span("lbfgs.eval"), torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         f = fun(xg)
-        (g,) = torch.autograd.grad(f.sum(), xg)
+        with span("lbfgs.grad"):
+            (g,) = torch.autograd.grad(f.sum(), xg)
     return f.detach(), g
 
 
@@ -228,6 +235,7 @@ class LbfgsState(NamedTuple):
     n_iter: torch.Tensor
     n_evals: torch.Tensor
     done: torch.Tensor
+    ls_exhausted: torch.Tensor  # [L] iterations whose line search ran out (``_strong_wolfe``)
 
 
 def _with_aux(fun, prepare, x: torch.Tensor):
@@ -239,6 +247,7 @@ def _with_aux(fun, prepare, x: torch.Tensor):
     return lambda x_: fun(x_, aux)
 
 
+@spanned("lbfgs.init")
 def lbfgs_init(fun, x0: torch.Tensor, opts: LbfgsOptions, prepare=None) -> LbfgsState:
     f0, g0 = _value_and_grad(_with_aux(fun, prepare, x0), x0)
     L, n = x0.shape
@@ -248,9 +257,10 @@ def lbfgs_init(fun, x0: torch.Tensor, opts: LbfgsOptions, prepare=None) -> Lbfgs
     return LbfgsState(x0.detach(), f0, g0, z, z.clone(),
                       torch.zeros((L, H), dtype=x0.dtype, device=x0.device),
                       ints, ints.clone(), ints + 1,
-                      g0.abs().amax(-1) <= opts.tolerance_grad)
+                      g0.abs().amax(-1) <= opts.tolerance_grad, ints.clone())
 
 
+@spanned("lbfgs.direction")
 def _direction(st: LbfgsState, H: int) -> torch.Tensor:
     """Two-loop recursion, every lane over its own history."""
     L = st.x.shape[0]
@@ -298,7 +308,7 @@ def lbfgs_step(fun, st: LbfgsState, opts: LbfgsOptions, prepare=None) -> LbfgsSt
     def eval_fd(t):
         return _value_and_grad(fun, st.x + t[:, None] * d)
 
-    f_ls, g_ls, t_ls, ev_ls = _strong_wolfe(eval_fd, t0, d, st.f, st.g, gtd, opts)
+    f_ls, g_ls, t_ls, ev_ls, ex_ls = _strong_wolfe(eval_fd, t0, d, st.f, st.g, gtd, opts)
     f_new = torch.where(dd_break, st.f, f_ls)
     g_new = _sel(dd_break, st.g, g_ls)
     t = torch.where(dd_break, torch.zeros_like(t_ls), t_ls)
@@ -321,7 +331,7 @@ def lbfgs_step(fun, st: LbfgsState, opts: LbfgsOptions, prepare=None) -> LbfgsSt
     return LbfgsState(
         x=_sel(dd_break, st.x, st.x + s), f=f_new, g=g_new, S=S_new, Y=Y_new, rho=rho_new,
         hist=st.hist + store.long(), n_iter=st.n_iter + 1, n_evals=st.n_evals + evals,
-        done=done)
+        done=done, ls_exhausted=st.ls_exhausted + (ex_ls & ~dd_break).long())
 
 
 def _segment_ends(k: int, running: bool) -> bool:
@@ -340,7 +350,7 @@ def lbfgs_run(fun, x0: torch.Tensor, opts: LbfgsOptions, iter_cap: int | None = 
     steps = 0
     while True:
         alive = (~st.done) & (st.n_iter < cap)
-        running = bool(alive.any())
+        running = sync(bool, alive.any())
         if on_segment is not None and _segment_ends(steps, running):
             on_segment(st)
         if not running:
@@ -388,7 +398,7 @@ def lbfgs_minimize_flat(fun, x0: torch.Tensor, opts: LbfgsOptions) -> LbfgsResul
     rows = torch.arange(x0.shape[0], device=x0.device)
     st = lbfgs_init(lambda x: fun(x, rows), x0, opts)
     while True:
-        rows = ((~st.done) & (st.n_iter < opts.max_iter)).nonzero()[:, 0]
+        rows = sync(torch.nonzero, (~st.done) & (st.n_iter < opts.max_iter))[:, 0]
         if rows.numel() == 0:
             return _result(st)
         new = lbfgs_step(lambda x, r=rows: fun(x, r), LbfgsState(*(t[rows] for t in st)), opts)
@@ -449,7 +459,14 @@ class BatchedLbfgs:
     ``ride_along_evals`` (their difference: finished lanes and duplicates
     carried in lockstep).  Evaluations are counted as the reference counts
     them, 1 + the line search's evaluations per iteration, so the two
-    packages' numbers compare.
+    packages' numbers compare.  The port's own counters: ``iterations``
+    (working-set iterations), ``ls_evals`` (closure calls made inside line
+    searches), ``lane_iters`` (the lanes' iterations, summed),
+    ``ls_exhausted`` (lane iterations whose line search stopped at
+    ``max_ls`` evaluations without meeting its conditions, lanes whose
+    direction was not a descent left out) and ``host_syncs`` (the run's
+    ``utils.tracing.sync`` calls: host reads and copies that wait for the
+    device).
 
     ``prepare(params, lane, shared) -> aux`` (the rank freeze): computed once
     per iteration, and ``fun`` then takes ``(params, lane, shared, aux)``.
@@ -487,6 +504,7 @@ class BatchedLbfgs:
         x0, unflatten = _raveler(params0, 1)
         L = x0.shape[0]
         calls = [0]
+        syncs0 = sync_count()
 
         def fun_on(rows):
             """The closure and the prepare hook on the lanes ``rows`` (None:
@@ -503,8 +521,9 @@ class BatchedLbfgs:
 
         def observe(rows, st):
             if self.snapshot is not None:
-                self.snapshot(rows, st.n_iter.cpu().numpy(),
-                              {k: v.detach().cpu().numpy() for k, v in unflatten(st.x).items()})
+                self.snapshot(rows, sync(st.n_iter.cpu).numpy(),
+                              {k: sync(v.detach().cpu).numpy()
+                               for k, v in unflatten(st.x).items()})
 
         cap = self.opts.max_iter if self.iter_cap is None else min(self.opts.max_iter,
                                                                     int(self.iter_cap))
@@ -519,12 +538,19 @@ class BatchedLbfgs:
         else:
             st, refills, steps = self._stream(fun_on, observe, x0, L, W, cap)
         # one closure call per line-search evaluation and per pool chunk's
-        # initial evaluation, plus the reference's extra count per iteration
+        # initial evaluation (and with ``prepare`` one per iteration), plus
+        # the reference's extra count per iteration
         device_evals = W * (calls[0] + steps)
-        lane_evals = int(st.n_evals.sum())
-        self.last_run_stats = {"width": W, "lanes": L, "refills": refills,
-                               "lane_evals": lane_evals, "device_evals": device_evals,
-                               "ride_along_evals": max(device_evals - lane_evals, 0)}
+        inits = -(-L // W)
+        lane_evals, lane_iters, exhausted = sync(torch.stack(
+            [st.n_evals.sum(), st.n_iter.sum(), st.ls_exhausted.sum()]).tolist)
+        self.last_run_stats = {
+            "width": W, "lanes": L, "refills": refills, "lane_evals": lane_evals,
+            "device_evals": device_evals, "ride_along_evals": max(device_evals - lane_evals, 0),
+            "iterations": steps,
+            "ls_evals": calls[0] - inits - (steps if self.prepare is not None else 0),
+            "lane_iters": lane_iters, "ls_exhausted": exhausted,
+            "host_syncs": sync_count() - syncs0}
         return {k: v.detach() for k, v in unflatten(st.x).items()}, _result(st)
 
     def _stream(self, fun_on, observe, x0: torch.Tensor, L: int, W: int, cap: int
@@ -535,7 +561,7 @@ class BatchedLbfgs:
         dev = x0.device
         chunks = []
         for s in range(0, L, W):  # row j of chunk s is lane min(s + j, L - 1)
-            rows = torch.as_tensor(np.clip(np.arange(s, s + W), 0, L - 1), device=dev)
+            rows = sync(torch.as_tensor, np.clip(np.arange(s, s + W), 0, L - 1), device=dev)
             fun, prepare = fun_on(rows)
             chunks.append(lbfgs_init(fun, x0[rows], self.opts, prepare))
         pool = LbfgsState(*(t[:L] for t in _cat(chunks)))
@@ -551,28 +577,30 @@ class BatchedLbfgs:
         def flush(pool, active, ws):
             # write each lane back once: its first row (duplicates carry its state)
             lanes, first = np.unique(active, return_index=True)
-            ids = torch.as_tensor(lanes, device=dev)
-            pos = torch.as_tensor(first, device=dev)
+            ids = sync(torch.as_tensor, lanes, device=dev)
+            pos = sync(torch.as_tensor, first, device=dev)
             return LbfgsState(*(p.index_copy(0, ids, w[pos]) for p, w in zip(pool, ws)))
 
         active = pick_active()
-        rows = torch.as_tensor(active, device=dev)
+        rows = sync(torch.as_tensor, active, device=dev)
         ws, (fun, prepare) = _gather(pool, rows), fun_on(rows)
         refills = steps = k = 0  # k: iterations of this working set
         while True:
             alive = (~ws.done) & (ws.n_iter < cap)
-            finished[active[~alive.cpu().numpy()]] = True
+            finished[active[~sync(alive.cpu).numpy()]] = True
             new_active = None if finished.all() else pick_active()
             running = new_active is not None and np.array_equal(new_active, active)
             if _segment_ends(k, running):
                 observe(active, ws)
             if new_active is None:
-                return flush(pool, active, ws), refills, steps
+                with span("lbfgs.refill"):
+                    return flush(pool, active, ws), refills, steps
             if not running:
-                pool = flush(pool, active, ws)
-                active = new_active
-                rows = torch.as_tensor(active, device=dev)
-                ws, (fun, prepare) = _gather(pool, rows), fun_on(rows)
+                with span("lbfgs.refill"):
+                    pool = flush(pool, active, ws)
+                    active = new_active
+                    rows = sync(torch.as_tensor, active, device=dev)
+                    ws, (fun, prepare) = _gather(pool, rows), fun_on(rows)
                 refills += 1
                 k = 0
                 continue
