@@ -15,7 +15,13 @@
    from ptxas (every one listed in EXPECTED_KERNELS, none spilling).  The
    batch path's widest shapes are held the same way: rank at L = 16 lanes x
    450 frames with the subtree bias (the part fit's working set) and the
-   forward at the first hypothesis cull (16 lanes x 450 frames).
+   forward at the first hypothesis cull (16 lanes x 450 frames).  The dense
+   LBS kernel (``ops/lbs_kernels.py``, built from ``csrc/lbs.cu``; its
+   ptxas line must show no spill) against the plain chain
+   (``lbs_forward_plain``) at the benchmark's 64 lanes x 450 frames:
+   vertices and joints within LBS_TOL_M, the rank kernel's picks on both
+   within the rank gates, its time beside its FP32 arithmetic bound and the
+   plain chain's; every batch solve but the mesh's must launch it.
 3. Batch phase (the main path): four synthetic 450 x 41 sequences made as
    ``bench.py:_make_batch_inner`` makes its random-layout batch (seed0 =
    2000), solved by ``MultiSequenceSolver(device="cuda").solve_prepared``
@@ -205,6 +211,10 @@ AGREE_MIN = 0.9999
 # forward value error against the plain version, m^2: a marker-to-vertex d2 is
 # ~9e-5 (9.5 mm); float32 rounding of the O(1) centered terms measured <= 3.6e-7
 FWD_VAL_TOL = 1e-6
+# the dense LBS kernel against the plain chain at the benchmark's shape (64
+# lanes x 450 frames): the largest vertex difference, m (FP32 sums over K =
+# 218 and a vertex's weights in another order than the chain's GEMMs)
+LBS_LANES, LBS_TOL_M = 64, 5e-6
 SEED = 0
 STAGE_KEYS = ("trans", "root_orient", "pose_body", "betas")
 # every kernel instantiation in csrc/chamfer.cu, as its mangled name shows
@@ -436,6 +446,67 @@ def index_add_call(idx, diff, gw, V):
     rows = (torch.arange(B, device=idx.device)[:, None] * V + idx.long()).reshape(-1)
     src = torch.cat([-diff.reshape(-1, 3), gw.reshape(-1, 1)], dim=1)
     return lambda: torch.zeros((B * V, 4), device=idx.device).index_add_(0, rows, src)
+
+
+def lbs_check(model, gt, markers, L=LBS_LANES):
+    """The dense LBS kernel (``ops/lbs_kernels.py``) at the benchmark's
+    working set, L yaw lanes x F frames with per-lane betas: the no-grad
+    ``lbs_forward`` (one kernel launch) against ``lbs_forward_plain`` (the
+    chain of GEMMs and broadcasts), vertices and joints within LBS_TOL_M,
+    the rank kernel's picks on both within AGREE_MIN and TIE_GAP_M2; the
+    kernel's time beside its bound, the whole kernel-route forward's and
+    the plain forward's.  -> the kernels line's row."""
+    import torch
+
+    from uuo_mocap_tpu_torch.body.model import lbs_forward, lbs_forward_plain, lbs_kernel_args
+    from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.ops import lbs_kernels as LK
+    from uuo_mocap_tpu_torch.ops import rotations as rot
+
+    F, M, V = F_FRAMES, N_MARKERS, model.num_vertices
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    angles = torch.arange(L, device="cuda", dtype=torch.float32) * (2 * torch.pi / L)
+    root = rot.rot_z(angles[:, None, None, None].expand(L, F, 1, 1)) @ gt.root_orient
+    betas = gt.betas.reshape(1, 1, 10) + 0.5 * torch.randn(L, 1, 10, device="cuda", generator=g)
+    args = (gt.pose_body, betas, root, gt.trans.expand(L, F, 3))
+    launches = LK.lbs_vertices_cuda.launches
+    with torch.no_grad():
+        out = lbs_forward(model, *args)
+        plain = lbs_forward_plain(model, *args)
+    torch.cuda.synchronize()
+    require(LK.lbs_vertices_cuda.launches == launches + 1,
+            "lbs: the no-grad CUDA forward did not launch the kernel once")
+    err = float((out["vertices"] - plain["vertices"]).abs().max())
+    err_j = float((out["joints"] - plain["joints"]).abs().max())
+    mk = markers[None].expand(L, F, M, 3).contiguous()
+    idx_k, idx_p = K.rank_nearest(mk, out["vertices"]), K.rank_nearest(mk, plain["vertices"])
+    B = L * F
+    gap = float(pick_gap(mk.reshape(B, M, 3), plain["vertices"].reshape(B, V, 3), None,
+                         idx_k.reshape(B, M), idx_p.reshape(B, M)).max())
+    agree = float((idx_k == idx_p).float().mean())
+    del out, plain
+    print(f"lbs L={L} F={F}: max vertex error {err:.3g} m, joints {err_j:.3g} m, rank agreement "
+          f"{agree:.6f}, max tie gap {gap:.3g} m^2", flush=True)
+    require(err <= LBS_TOL_M and err_j <= LBS_TOL_M,
+            f"lbs: kernel against the plain forward {err:.3g} / {err_j:.3g} m above {LBS_TOL_M}")
+    require(agree >= AGREE_MIN, f"lbs: rank agreement {agree} below {AGREE_MIN}")
+    require(gap <= TIE_GAP_M2, f"lbs: rank disagreement beyond a tie (gap {gap})")
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        a = lbs_kernel_args(model, *args)[0]
+    ms = time_ms(lambda: LK.lbs_vertices_cuda(*a), 20)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: lbs_forward(model, *args), 10)
+        plain_ms = time_ms(lambda: lbs_forward_plain(model, *args), 5, warmup=1)
+    t = a[4]
+    W = t.joints.shape[1]
+    nbytes = sum(x.numel() * 4 for x in a[:4]) + sum(x.numel() * 4 for x in t) + B * V * 12
+    b_ms, b_by = bound(nbytes, LK.flop_per_row(V, W) * B)
+    print(f"lbs L={L} F={F} ({B} rows, {W} weights a vertex): kernel {ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f} % of it; the kernel-route forward "
+          f"{fwd_ms:.4f} ms, the plain forward {plain_ms:.4f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, forward_ms=fwd_ms, agreement=agree)
 
 
 def kernel_phase(model, gt, markers):
@@ -767,6 +838,7 @@ def batch_phase(model, layout="random", mesh=None):
     import torch
 
     from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.ops import lbs_kernels as LK
     from uuo_mocap_tpu_torch.parallel.batch_solver import MultiSequenceSolver
     from uuo_mocap_tpu_torch.pipeline.segmentation import segment_rigid
 
@@ -789,11 +861,13 @@ def batch_phase(model, layout="random", mesh=None):
                                          "nearest_points_lanes_nolabel", "marker_stage_lanes"),
                          per_call)
     K.reset_launch_counts()
+    lbs0 = LK.lbs_vertices_cuda.launches
     t0 = time.time()
     out = solver.solve_prepared(preps, save_stages=True)
     torch.cuda.synchronize()
     solve_s = time.time() - t0
     counts = K.launch_counts()
+    lbs_launches = LK.lbs_vertices_cuda.launches - lbs0
     frames = BATCH * F_FRAMES
     print(f"{tag} solve: {solve_s:.2f} s, {frames / solve_s:.3f} frames/s ({frames} frames)",
           flush=True)
@@ -804,6 +878,8 @@ def batch_phase(model, layout="random", mesh=None):
           f"{[[int(c) for c in r['chain']] for r in out['results']]}", flush=True)
     print(f"{tag} launches per stage call: {per_call}", flush=True)
     print(json.dumps({f"{layout}_batch_launches": counts}), flush=True)
+    print(f"{tag}: {lbs_launches} dense LBS kernel launches", flush=True)
+    require(mesh is not None or lbs_launches > 0, f"{tag}: the dense LBS kernel never launched")
     chamfer_digest = stage_digest(out, "chamfer")
     print(f"{tag} output digest {digest(*(r[k] for r in out['results'] for k in STAGE_KEYS))}, "
           f"chamfer-stage digest {chamfer_digest}", flush=True)
@@ -818,7 +894,8 @@ def batch_phase(model, layout="random", mesh=None):
     require(max_v <= gates[1], f"{tag} MPJPE max {max_v:.2f} mm above {gates[1]} mm")
     return {"counts": counts, "mpjpe": errs, "chamfer_digest": chamfer_digest,
             "evals": out["lbfgs_evals"], "eval_stats": out["eval_stats"],
-            "best": out["best_hypothesis"].tolist(), "solve_s": solve_s}
+            "best": out["best_hypothesis"].tolist(), "solve_s": solve_s,
+            "lbs_launches": lbs_launches}
 
 
 MESH_MPJPE_TOL_MM = 2.0  # tests/test_model_axis_parity.py's bound for the same transformation
@@ -2200,6 +2277,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from uuo_mocap_tpu_torch.body.synthetic import synthetic_body_model
     from uuo_mocap_tpu_torch.ops import chamfer_kernels as K
+    from uuo_mocap_tpu_torch.ops import lbs_kernels as LK
 
     t_start = time.time()
     line = gpu_line()
@@ -2208,6 +2286,15 @@ def main() -> int:
     t0 = time.time()
     K.build()
     print(f"kernel build: {time.time() - t0:.2f} s ({K._Library.path})", flush=True)
+    t0 = time.time()
+    LK.build()
+    print(f"lbs kernel build: {time.time() - t0:.2f} s ({LK._Library.path})", flush=True)
+    lbs_usage = K.ptxas_usage(LK._Library.log)
+    for u in lbs_usage:
+        print(f"  ptxas: {u['kernel']}: {u['registers']} registers, spill stores "
+              f"{u['spill_stores']} B, spill loads {u['spill_loads']} B")
+    require(len(lbs_usage) == 1 and lbs_usage[0]["spill_stores"] == 0
+            and lbs_usage[0]["spill_loads"] == 0, "the lbs kernel spills or is not listed once")
     usage = K.ptxas_usage(K._Library.log)
     for u in usage:
         print(f"  ptxas: {u['kernel']}: {u['registers']} registers, spill stores "
@@ -2224,6 +2311,7 @@ def main() -> int:
     gt, markers, prior = make_sequence(model)
 
     kres = kernel_phase(model, gt, markers)
+    lres = lbs_check(model, gt, markers)
     random = batch_phase(model)  # the main path
     from uuo_mocap_tpu_torch.parallel.mesh import make_mesh
 
@@ -2265,6 +2353,9 @@ def main() -> int:
         dict(name="min_sqdist_backward", route="cuda", source=src,
              replaces="uuo_mocap_tpu/ops/chamfer_pallas.py:125",
              launches=launches["min_sqdist_backward_cuda"], **kres["min_sqdist_bwd"]),
+        dict(name="lbs_vertices", route="cuda", source="uuo_mocap_tpu_torch/csrc/lbs.cu",
+             replaces="none (the dense forward's GEMMs and broadcasts)",
+             launches=random["lbs_launches"], **lres),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -4,14 +4,17 @@
 ``BodyModel`` holds the model tensors on one device plus the derived
 tensors both forwards reuse (flattened blend bases, the regressor
 pre-contracted with the template and the shape basis).  ``lbs_forward`` is
-the dense forward; ``lbs_forward_at`` evaluates the same pipeline only at
-selected vertices, so its backward is O(M) instead of O(V).  All matmuls
-run in full FP32 (``device.py`` switches TF32 off).  ``load_body_model``
+the dense forward: a no-grad float32 call on the card runs the hand-written
+kernel of ``ops.lbs_kernels``, any other call the plain arithmetic
+(``lbs_forward_plain``).  ``lbs_forward_at`` evaluates the same pipeline
+only at selected vertices, so its backward is O(M) instead of O(V).  All
+matmuls run in full FP32 (``device.py`` switches TF32 off).  ``load_body_model``
 reads an SMPL asset (a chumpy-encoded pkl, decoded without chumpy, or an
 npz with the same field names).
 """
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 from typing import Any, Dict, List, Tuple
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 import uuo_mocap_tpu_torch.device  # noqa: F401  (sets the FP32 matmul policy)
+from uuo_mocap_tpu_torch.ops import lbs_kernels
+from uuo_mocap_tpu_torch.utils import tracing
 
 NUM_VERTICES = 6890
 NUM_JOINTS = 24
@@ -74,6 +79,13 @@ class BodyModel:
         self.j_shapedirs = torch.einsum("jv,vdk->jdk", j_regressor, shapedirs)  # [24, 3, 10]
         self.levels = _tree_levels(self.parents)
         self.extra_joint_ids = torch.as_tensor(EXTRA_JOINT_VERTEX_IDS, device=v_template.device)
+
+    @functools.cached_property
+    def lbs_tables(self) -> lbs_kernels.LbsTables:
+        """The dense kernel's tables (``ops.lbs_kernels.lbs_tables``), built
+        on the first kernel call."""
+        return lbs_kernels.lbs_tables(self.v_template, self.shapedirs, self.posedirs,
+                                      self.lbs_weights)
 
     @property
     def device(self) -> torch.device:
@@ -193,9 +205,32 @@ def lbs_forward(model: BodyModel, pose_body: torch.Tensor, betas: torch.Tensor,
     leading dims of ``trans``: pose_body [..., 23, 3, 3], betas [..., 10],
     root_orient [..., 1, 3, 3], trans [..., 3] (all broadcastable) ->
     {"joints" [..., 45, 3], "vertices" [..., V, 3]}.  A model placed on a
-    mesh (``parallel.mesh.ShardedBodyModel``) runs its own forward."""
+    mesh (``parallel.mesh.ShardedBodyModel``) runs its own forward.
+
+    Float32 CUDA tensors with autograd not recording (grad mode off, or no
+    input or model tensor requiring grad) go to the hand-written kernel
+    (``_lbs_forward_kernel``); every other call keeps the plain arithmetic
+    (``lbs_forward_plain``).
+    Each call runs inside a ``uuo.lbs.dense`` span, and its rows (the
+    product of the batch dims) are counted (``tracing.dense_lbs_rows``)."""
     if not isinstance(model, BodyModel):
         return model.lbs_forward(pose_body, betas, root_orient, trans)
+    inputs = (pose_body, betas, root_orient, trans)
+    tensors = inputs + (model.v_template, model.shapedirs, model.posedirs, model.lbs_weights)
+    kernel = (all(t.is_cuda and t.dtype == torch.float32 for t in tensors)
+              and not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)))
+    tracing.count_dense_lbs(trans.shape[:-1].numel(), kernel)
+    with tracing.span("lbs.dense"):
+        if kernel:
+            return _lbs_forward_kernel(model, *inputs)
+        return lbs_forward_plain(model, *inputs)
+
+
+def lbs_forward_plain(model: BodyModel, pose_body: torch.Tensor, betas: torch.Tensor,
+                      root_orient: torch.Tensor, trans: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``lbs_forward``'s plain arithmetic on any device, differentiable: the
+    rest joints from the regressor on the shaped template, the blend shapes
+    and the skinning as PyTorch products and broadcasts."""
     batch = trans.shape[:-1]
     V = model.num_vertices
     betas = betas.expand(batch + (NUM_BETAS,))
@@ -216,6 +251,43 @@ def lbs_forward(model: BodyModel, pose_body: torch.Tensor, betas: torch.Tensor,
     posed_joints = posed_joints + trans[..., None, :]
     extra = verts.index_select(-2, model.extra_joint_ids)
     return {"joints": torch.cat([posed_joints, extra], dim=-2), "vertices": verts}
+
+
+def _lbs_forward_kernel(model: BodyModel, pose_body: torch.Tensor, betas: torch.Tensor,
+                        root_orient: torch.Tensor, trans: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The no-grad dense forward on the card: ``lbs_kernel_args``, then the
+    vertices from ``ops.lbs_kernels.lbs_vertices_cuda`` in one launch and
+    the surface joints read from them."""
+    batch = trans.shape[:-1]
+    args, posed_joints = lbs_kernel_args(model, pose_body, betas, root_orient, trans)
+    verts = lbs_kernels.lbs_vertices_cuda(*args).reshape(batch + (model.num_vertices, 3))
+    extra = verts.index_select(-2, model.extra_joint_ids)
+    return {"joints": torch.cat([posed_joints + trans[..., None, :], extra], dim=-2),
+            "vertices": verts}
+
+
+def lbs_kernel_args(model: BodyModel, pose_body: torch.Tensor, betas: torch.Tensor,
+                    root_orient: torch.Tensor, trans: torch.Tensor
+                    ) -> Tuple[tuple, torch.Tensor]:
+    """The dense kernel's arguments for a forward of N rows (the batch dims
+    of ``trans`` flattened): (pose_feature [N, 207], betas [N, 10], the
+    kinematic chain's transforms [N, 24, 12], trans [N, 3], the model's
+    tables), and the posed joints [..., 24, 3] before ``trans``.  The
+    chain is the plain forward's, with the rest joints from the
+    pre-contracted regressor (``j_template + j_shapedirs . betas``, as
+    ``lbs_forward_at``; the same sum as ``j_regressor @ v_shaped`` in
+    another order)."""
+    batch = trans.shape[:-1]
+    N = batch.numel()
+    betas = betas.expand(batch + (NUM_BETAS,))
+    joints_rest = model.j_template + torch.einsum("jdk,...k->...jd", model.j_shapedirs, betas)
+    pose_body, rot_mats = _rot_mats(pose_body, root_orient, batch)
+    eye = torch.eye(3, dtype=trans.dtype, device=trans.device)
+    pose_feature = (pose_body - eye).reshape(N, NUM_POSE_JOINTS * 9)
+    posed_joints, A = _compose_kinematic_chain(rot_mats, joints_rest, model.parents, model.levels)
+    return (pose_feature, betas.reshape(N, NUM_BETAS).contiguous(),
+            A.reshape(N, NUM_JOINTS, 12).contiguous(), trans.reshape(N, 3).contiguous(),
+            model.lbs_tables), posed_joints
 
 
 def lbs_forward_at(model: BodyModel, pose_body: torch.Tensor, betas: torch.Tensor,

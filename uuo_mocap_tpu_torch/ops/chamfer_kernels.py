@@ -64,29 +64,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/chamfer.cu`` if its library is not built yet, load it,
-    and declare the C signatures.  nvcc's output is kept beside the library
-    (``*.log``), so ``_Library.log`` holds it whichever process built it.
-    Returns the loaded library."""
-    if _Library.lib is not None:
-        return _Library.lib
-    with open(SOURCE, "rb") as f:
+def compiled(source: str, stem: str) -> Tuple[str, str]:
+    """Compile the CUDA file ``source`` with ``NVCC_FLAGS`` into
+    ``_build/lib<stem>_<hash>.so`` unless that library is built already
+    (keyed by the source's content and the flags; a concurrent build
+    replaces it atomically).  nvcc's output (ptxas -v) is kept beside the
+    library (``*.log``).  Returns (the library's path, that output)."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libuuo_chamfer_{digest}.so")
+    path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if not (os.path.exists(path) and os.path.exists(f"{path}.log")):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE}:\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc failed building {source}:\n{proc.stdout}{proc.stderr}")
         with open(f"{tmp}.log", "w") as f:
             f.write(proc.stdout + proc.stderr)
         os.replace(f"{tmp}.log", f"{path}.log")
         os.replace(tmp, path)
     with open(f"{path}.log") as f:
-        _Library.log = f.read()
+        return path, f.read()
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/chamfer.cu`` if its library is not built yet
+    (``compiled``), load it, and declare the C signatures; ``_Library.log``
+    holds nvcc's output of its build, whichever process built it.  Returns
+    the loaded library."""
+    if _Library.lib is not None:
+        return _Library.lib
+    path, _Library.log = compiled(SOURCE, "uuo_chamfer")
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.uuo_rank_nearest.argtypes = [p, p, p, p, i, i, i, i, p]

@@ -44,6 +44,7 @@ from uuo_mocap_tpu_torch.body.model import (
 from uuo_mocap_tpu_torch.ops import rotations as rot
 from uuo_mocap_tpu_torch.ops import sharded
 from uuo_mocap_tpu_torch.ops.chamfer import min_sqdist
+from uuo_mocap_tpu_torch.utils import tracing
 
 
 def _norm_device(d) -> torch.device:
@@ -223,6 +224,7 @@ class ShardedBodyModel:
             return lbs_forward(row.whole, pose_body, betas, root_orient, trans)
         home = trans.device
         batch = trans.shape[:-1]
+        tracing.count_dense_lbs(batch.numel(), False)
         b2 = betas.expand(batch + (NUM_BETAS,)).reshape(-1, NUM_BETAS)
         pose_body, rot_mats = _rot_mats(pose_body, root_orient, batch)
         eye = torch.eye(3, dtype=trans.dtype, device=home)

@@ -35,7 +35,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from uuo_mocap_tpu_torch.utils.tracing import span, spanned, sync, sync_count
+from uuo_mocap_tpu_torch.utils.tracing import (
+    dense_lbs_kernel_rows, dense_lbs_rows, span, spanned, sync, sync_count)
 
 # iterations per segment of the reference's device loop (``stages.py:47``):
 # the rate at which ``BatchedLbfgs.snapshot`` sees the parameters
@@ -464,9 +465,11 @@ class BatchedLbfgs:
     searches), ``lane_iters`` (the lanes' iterations, summed),
     ``ls_exhausted`` (lane iterations whose line search stopped at
     ``max_ls`` evaluations without meeting its conditions, lanes whose
-    direction was not a descent left out) and ``host_syncs`` (the run's
+    direction was not a descent left out), ``host_syncs`` (the run's
     ``utils.tracing.sync`` calls: host reads and copies that wait for the
-    device).
+    device), ``dense_lbs_rows`` (the rows of the run's dense LBS forwards,
+    ``utils.tracing.dense_lbs_rows``) and ``dense_lbs_kernel_rows`` (of
+    those, the rows the hand-written kernel computed).
 
     ``prepare(params, lane, shared) -> aux`` (the rank freeze): computed once
     per iteration, and ``fun`` then takes ``(params, lane, shared, aux)``.
@@ -505,6 +508,7 @@ class BatchedLbfgs:
         L = x0.shape[0]
         calls = [0]
         syncs0 = sync_count()
+        dense0, dense_kernel0 = dense_lbs_rows(), dense_lbs_kernel_rows()
 
         def fun_on(rows):
             """The closure and the prepare hook on the lanes ``rows`` (None:
@@ -550,7 +554,9 @@ class BatchedLbfgs:
             "iterations": steps,
             "ls_evals": calls[0] - inits - (steps if self.prepare is not None else 0),
             "lane_iters": lane_iters, "ls_exhausted": exhausted,
-            "host_syncs": sync_count() - syncs0}
+            "host_syncs": sync_count() - syncs0,
+            "dense_lbs_rows": dense_lbs_rows() - dense0,
+            "dense_lbs_kernel_rows": dense_lbs_kernel_rows() - dense_kernel0}
         return {k: v.detach() for k, v in unflatten(st.x).items()}, _result(st)
 
     def _stream(self, fun_on, observe, x0: torch.Tensor, L: int, W: int, cap: int

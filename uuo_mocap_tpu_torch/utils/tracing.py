@@ -24,6 +24,12 @@ open on the host when the gap began.  Every name starts with ``PREFIX``:
   uuo.lbfgs.refill       the streaming working set's write-back and gather
   uuo.sync               a host read or copy that waits for the device
                          (``sync``), counted by ``sync_count``
+  uuo.lbs.dense          one dense LBS forward (``body.model.lbs_forward``)
+
+Beside ``sync_count``, two counters of the dense LBS forward's rows (the
+product of its batch dims): ``dense_lbs_rows`` by either route, and
+``dense_lbs_kernel_rows`` through the hand-written kernel
+(``ops.lbs_kernels``).
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ PREFIX = "uuo."
 _NULL = contextlib.nullcontext()
 _profiling = torch._C._autograd._profiler_enabled
 _syncs = 0
+_dense_rows = 0
+_dense_kernel_rows = 0
 
 T = TypeVar("T")
 
@@ -76,6 +84,25 @@ def sync(read: Callable[..., T], *args, **kw) -> T:
 def sync_count() -> int:
     """``sync`` calls made in this process so far (callers take differences)."""
     return _syncs
+
+
+def count_dense_lbs(rows: int, kernel: bool) -> None:
+    """Count a dense LBS forward of ``rows`` rows; ``kernel``: it ran
+    through the hand-written kernel."""
+    global _dense_rows, _dense_kernel_rows
+    _dense_rows += rows
+    if kernel:
+        _dense_kernel_rows += rows
+
+
+def dense_lbs_rows() -> int:
+    """Dense LBS rows computed in this process so far, by either route."""
+    return _dense_rows
+
+
+def dense_lbs_kernel_rows() -> int:
+    """Of those, the rows the hand-written kernel computed."""
+    return _dense_kernel_rows
 
 
 @contextlib.contextmanager
